@@ -5,17 +5,25 @@
 
 Phases, in order; any failure exits non-zero (no phase is caught):
 
-1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
-   whether triton imports;
-2. build: every hand-written CUDA kernel from the checkout's sources;
-3. each kernel against its plain PyTorch version on the card, exact, over
-   the shapes its callers give it, with times beside the bound;
+1. environment: the card's name and power limit, its int32 instruction
+   rate (SMs x 64 INT32 lanes x the maximum SM clock), torch/CUDA/nvcc
+   versions, whether triton imports;
+2. build: every hand-written CUDA kernel from the checkout's sources,
+   and the integer SASS instructions of each kernel instantiation
+   (``cuobjdump -sass``) for the operations bound;
+3. the quantization kernel in both modes — quantize-only
+   (``quantize_qv``) and fused quantize + RDOQ-lite trim + rate
+   (``quant_stage_j``) — against its plain PyTorch versions on the card,
+   exact, over row lengths, log_scales, plane types, RDOQ on/off and
+   batch sizes, with times beside the bound;
 4. the slice's main path through the user entry point: a 1920x1080 8-bit
    all-intra stream (preset 5, qp 40) through ``encode_ivf`` on ``cuda``,
    whose sha256 must equal the JAX package's stream of the same clip
-   (``GOLDEN_*``), and whose run must have launched every kernel;
-5. each kernel timed at the heaviest shape the main path gave it, and
-   one wave of the main path under torch.profiler (device busy share);
+   (``GOLDEN_*``), whose run must have launched the fused kernel, and in
+   which the plain trim and rate must not have run;
+5. each mode timed at the heaviest shape the main path gave the fused
+   kernel, and one wave of the main path under torch.profiler (device
+   busy share, device operations);
 6. a ``{"kernels": [...]}`` line, the card's line, and last the device
    line.
 
@@ -26,13 +34,16 @@ Details (per-shape times, stage spans, ptxas report) go to
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # the JAX package's stream of the same input: svt_av1_tpu.pipeline.encoder.
 # encode_ivf(backend="host") on make_clip(1920, 1080, frames=2, seed=3),
@@ -42,8 +53,15 @@ GOLDEN_SHA256 = \
 GOLDEN_BYTES = 777750
 WIDTH, HEIGHT, FRAMES, QP, PRESET = 1920, 1080, 2, 40, 5
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (data sheet)
-INT_OPS_PER_S = 67e12            # H100 SXM non-tensor 32-bit rate
+INT32_LANES_PER_SM = 64          # Hopper SM: 64 INT32 lanes (128 FP32)
 OUT_DIR = "chiprun_out"
+# SASS opcodes (before the first '.') of integer work: the integer
+# multiply-adds run on the FMA pipe, the rest on the INT32 (ALU) pipe;
+# each pipe takes 64 lanes a clock on an SM, and the SM issues 128
+SASS_IMAD = {"IMAD", "IMUL"}
+SASS_ALU = {"IADD3", "IADD", "ISETP", "IMNMX", "VIMNMX", "IABS", "LOP3",
+            "LOP", "SHF", "SHL", "SHR", "SEL", "LEA", "PRMT", "POPC", "FLO",
+            "BMSK", "BREV", "IDP", "ISCADD", "MOV", "I2I", "VABSDIFF"}
 
 
 def _run(cmd) -> str:
@@ -57,6 +75,14 @@ def _run(cmd) -> str:
 def phase_environment(torch) -> dict:
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
+    clk = _run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                "--format=csv,noheader,nounits"])
+    try:
+        sm_mhz = float(clk.splitlines()[0])
+    except (ValueError, IndexError):
+        raise SystemExit(f"cannot read the SM clock from nvidia-smi: {clk}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_ops = sms * INT32_LANES_PER_SM * sm_mhz * 1e6
     from svt_av1_tpu_torch import cuda_build
     try:
         nvcc = _run([cuda_build.nvcc_path(), "--version"]).splitlines()[-1]
@@ -69,10 +95,43 @@ def phase_environment(torch) -> dict:
         tri = f"triton unavailable ({e})"
     env = {"nvidia_smi": smi, "torch": torch.__version__,
            "cuda": torch.version.cuda, "nvcc": nvcc, "triton": tri,
-           "python": sys.version.split()[0]}
-    print(f"[env] {smi} | torch {env['torch']} cuda {env['cuda']} | "
-          f"{nvcc} | {tri}", flush=True)
+           "python": sys.version.split()[0], "sms": sms,
+           "sm_clock_max_mhz": sm_mhz, "int32_ops_per_s": int32_ops}
+    print(f"[env] {smi} | int32 rate {sms} SMs x {INT32_LANES_PER_SM} "
+          f"lanes x {sm_mhz:.0f} MHz = {int32_ops / 1e12:.3f}e12 instr/s | "
+          f"torch {env['torch']} cuda {env['cuda']} | {nvcc} | {tri}",
+          flush=True)
     return env
+
+
+def sass_counts(lib: Path) -> dict:
+    """{(n, mode): [INT32-pipe, integer multiply-add, all instructions]}
+    of each instantiation of csrc/quant.cu's kernel, from ``cuobjdump
+    -sass``: static counts, taken as what each thread runs (the kernel
+    has no data-dependent loop; the branches a lane skips are counted,
+    so the counts are high by those)."""
+    from svt_av1_tpu_torch import cuda_build
+    tool = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : \S*quant_stage_kernelILi(\d+)ELi(\d)E",
+                      line)
+        if m:
+            cur = (int(m[1]), int(m[2]))
+            counts[cur] = [0, 0, 0]
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9]*)", line)
+        if m and cur is not None and m[1] != "NOP":
+            counts[cur][0] += m[1] in SASS_ALU
+            counts[cur][1] += m[1] in SASS_IMAD
+            counts[cur][2] += 1
+    if len(counts) != 12:
+        raise SystemExit(f"expected 12 kernel instantiations in the SASS, "
+                         f"found {sorted(counts)}")
+    return counts
 
 
 def phase_build() -> dict:
@@ -80,9 +139,17 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
     dt = time.perf_counter() - t0
+    sass = sass_counts(cuda_build.library_path("quant"))
     print(f"[build] {len(cuda_build.KERNELS)} kernel source(s), "
           f"{dt:.2f} s", flush=True)
-    return {"seconds": dt, "nvcc_output": logs}
+    for (n, mode), (alu, imad, n_all) in sorted(sass.items()):
+        print(f"[build] quant_stage_kernel<{n}, mode {mode}>: {alu} INT32 "
+              f"+ {imad} IMAD of {n_all} SASS instructions per thread "
+              f"({(alu + imad) / 4:.1f} integer per coefficient)",
+              flush=True)
+    return {"seconds": dt, "nvcc_output": logs,
+            "sass": {f"n={n} mode={m}": v for (n, m), v in sass.items()}}, \
+        sass
 
 
 _CYCLES_PER_MS = []
@@ -105,16 +172,20 @@ def _time_ms(torch, fn, reps: int = 10, trials: int = 21):
     """(device ms, host ms) per call of fn(). Device: CUDA events around
     ``reps`` back-to-back calls queued behind a device-side sleep that
     outlasts their enqueue, so the card runs them without waiting for
-    the host; the median over ``trials``. Host: wall time per call with
-    a synchronize at the end (what a caller that waits sees)."""
+    the host; the median over ``trials``. Host: wall time per call over
+    ``reps`` calls with a synchronize at the end (what a caller that
+    waits sees), the median of 5 such windows."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0) / reps
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0) / reps)
+    host_ms = statistics.median(host)
     dev = []
     for _ in range(trials):
         _keep_busy(torch, 2.0 * host_ms * reps + 1.0)
@@ -129,98 +200,146 @@ def _time_ms(torch, fn, reps: int = 10, trials: int = 21):
     return statistics.median(dev), host_ms
 
 
-def _quant_case(torch, np, b: int, n: int, ls: int, seed: int):
-    """Coefficients in +-2^17 with rows of 0, +-32767 and +-2^20; per-row
-    qindex random in 0..255 with 0 and 255 present."""
-    rng = np.random.default_rng(seed)
-    coeff = rng.integers(-(1 << 17), (1 << 17) + 1, (b, n)).astype(np.int32)
-    special = [0, 32767, -32767, 1 << 20, -(1 << 20)]
-    for i, v in enumerate(special[:b]):
-        coeff[i] = v
-    qv = rng.integers(0, 256, b).astype(np.int32)
-    qv[0] = 0
-    qv[-1] = 255
-    return (torch.as_tensor(coeff, device="cuda"),
-            torch.as_tensor(qv, device="cuda"))
+def _stage_inputs(torch, n: int, ls: int, b: int, seed: int):
+    """b rows of the quantization-stage check batch (the tail of a batch
+    with every special row when b is small: all-zero, +-2^20, +-32767,
+    INT32_MIN, DC-only, zero-lambda ties, lossless, qindex 255, a
+    wrapping lambda) as CUDA tensors, with the scan and tx size."""
+    from tests.torch_quant_cases import stage_rows
+    coeff, qv, lam, scan, tx = stage_rows(n, ls, b, seed)
+    c, q, lm = (torch.as_tensor(a, device="cuda") for a in (coeff, qv, lam))
+    return c, q, lm, scan, tx
 
 
-def _quant_scan(n: int):
-    from svt_av1_tpu_torch.utils.blocks import (TX_4X4, TX_8X8, TX_16X16,
-                                                TX_32X32, get_scan)
-    return get_scan({16: TX_4X4, 64: TX_8X8, 256: TX_16X16,
-                     1024: TX_32X32}[n], 0)
-
-
-def _quant_compare(torch, np, b, n, ls, seed, timed=False) -> dict:
+def _modes() -> dict:
+    """{launch counter name: template argument MODE of csrc/quant.cu}."""
     from svt_av1_tpu_torch.ops import device as dev
-    coeff, qv = _quant_case(torch, np, b, n, ls, seed)
-    scan = _quant_scan(n)
-    got = dev.quantize_qv(coeff, scan, qv, ls, 8)
-    want = dev.quantize_qv_plain(coeff, scan, qv, ls, 8)
+    return {name: mode for mode, name in dev.MODE_NAMES.items()}
+
+
+def _mode_fns(mode: str, c, q, lm, scan, tx, ls, plane_type=0):
+    """(kernel call, plain call) of one kernel mode on these inputs."""
+    from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.ops import device_md as tmd
+    if mode == "quantize_qv":
+        return (lambda: dev.quantize_qv(c, scan, q, ls, 8),
+                lambda: dev.quantize_qv_plain(c, scan, q, ls, 8))
+    rl = lm if mode == "quant_stage_rdoq" else None
+    return (lambda: tmd.quant_stage_j(c, scan, q, ls, 8, tx, plane_type, rl),
+            lambda: tmd.quant_stage_plain(c, scan, q, ls, 8, tx, plane_type,
+                                          rl))
+
+
+def _bound(mode: str, b: int, n: int, sass: dict, int32_ops: float):
+    """(bound ms, "bytes" or "operations"): 4 B read and 8 B written per
+    coefficient; per row the qindex in and the eob out, plus the rate
+    out (fused) and the lambda in (trim). Operations: the kernel's SASS
+    instructions, once per thread, n / 4 threads a row — the INT32-pipe
+    ones and the integer multiply-adds (FMA pipe) each at the card's
+    int32 rate, all of them at twice it (the SM's issue rate); the
+    slowest of the three."""
+    per_row = {"quantize_qv": 8, "quant_stage": 16, "quant_stage_rdoq": 24}
+    nbytes = b * n * 12 + b * per_row[mode]
+    alu, imad, n_all = sass[(n, _modes()[mode])]
+    threads = b * (n // 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = threads * max(alu, imad, n_all / 2) / int32_ops
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _check(torch, mode, c, q, lm, scan, tx, ls, plane_type=0) -> dict:
+    kern, plain = _mode_fns(mode, c, q, lm, scan, tx, ls, plane_type)
+    got, want = kern(), plain()
     torch.cuda.synchronize()
     err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
-    exact = all(torch.equal(g, w) for g, w in zip(got, want))
-    row = {"B": b, "n": n, "log_scale": ls, "exact": exact,
-           "max_abs_err": err}
-    if timed:
-        row["ms"], row["call_ms"] = _time_ms(torch, lambda: dev.quantize_qv(
-            coeff, scan, qv, ls, 8))
-        row["plain_ms"], row["plain_call_ms"] = _time_ms(
-            torch, lambda: dev.quantize_qv_plain(coeff, scan, qv, ls, 8))
-        nbytes = b * n * 12 + b * 8      # read coeff, write q+dq; qv, eob
-        ops = b * n * 15
-        row["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                    ops / INT_OPS_PER_S)
-        row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= \
-            ops / INT_OPS_PER_S else "operations"
+    exact = all(g.dtype == w.dtype and torch.equal(g, w)
+                for g, w in zip(got, want))
+    return {"mode": mode, "B": len(q), "n": c.shape[1], "log_scale": ls,
+            "plane_type": plane_type, "exact": exact, "max_abs_err": err}
+
+
+def _timed(torch, row, mode, c, q, lm, scan, tx, ls, sass, int32_ops,
+           plane_type=0) -> dict:
+    kern, plain = _mode_fns(mode, c, q, lm, scan, tx, ls, plane_type)
+    row["ms"], row["call_ms"] = _time_ms(torch, kern)
+    row["plain_ms"], row["plain_call_ms"] = _time_ms(torch, plain)
+    row["bound_ms"], row["bound_by"] = _bound(mode, row["B"], row["n"],
+                                              sass, int32_ops)
     return row
 
 
-def phase_kernels(torch, np) -> list:
-    """Every (n, log_scale, B) of the check grid: kernel == plain, exact;
-    timed at B=8160 (a 1080p frame's 16x16 blocks) and B=8 (a typical
-    wave of the wave loop)."""
+def phase_kernels(torch, sass: dict, int32_ops: float) -> list:
+    """Every (n, log_scale, B) of the check grid, each kernel mode (the
+    fused ones with plane type 0 and 1) against its plain version, exact;
+    each mode timed at B=8 (a typical wave) and B=8160 (a 1080p frame's
+    16x16 blocks)."""
     rows = []
     for n in (16, 64, 256, 1024):
         for ls in (0, 1, 2):
             for b in (1, 8, 37, 8160):
-                row = _quant_compare(torch, np, b, n, ls,
-                                     seed=n * 7 + ls * 3 + b,
-                                     timed=(b in (8, 8160)))
-                rows.append(row)
-                if not row["exact"]:
-                    raise SystemExit(f"quantize_qv kernel != plain at {row}")
+                ins = _stage_inputs(torch, n, ls, b, seed=n * 7 + ls * 3 + b)
+                for mode in _modes():
+                    for pt in ((0,) if mode == "quantize_qv" else (0, 1)):
+                        row = _check(torch, mode, *ins, ls, pt)
+                        if not row["exact"]:
+                            raise SystemExit(f"{mode} kernel != plain at "
+                                             f"{row}")
+                        if b in (8, 8160) and pt == 0:
+                            _timed(torch, row, mode, *ins, ls, sass,
+                                   int32_ops)
+                        rows.append(row)
     for r in rows:
         if "ms" in r:
-            print(f"[kernel] quantize_qv B={r['B']} n={r['n']} "
-                  f"ls={r['log_scale']}: {r['ms']:.4f} ms (call "
+            print(f"[kernel] {r['mode']} B={r['B']} n={r['n']} "
+                  f"ls={r['log_scale']}: {r['ms']:.5f} ms (call "
                   f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms "
                   f"(call {r['plain_call_ms']:.4f} ms), bound "
-                  f"{r['bound_ms']:.5f} ms", flush=True)
-    print(f"[kernel] quantize_qv exact at all {len(rows)} shapes",
-          flush=True)
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                  f"{100 * r['bound_ms'] / r['ms']:.0f}% of bound",
+                  flush=True)
+    print(f"[kernel] quant_stage_kernel exact in every mode at all "
+          f"{len(rows)} checks", flush=True)
     return rows
 
 
 def phase_slice(torch):
-    """Returns (result, {(kernel, B, n, log_scale): launches})."""
+    """Returns (result, {(mode, B, n, log_scale): launches})."""
     from svt_av1_tpu_torch.app.cli import preset_config
     from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.ops import device_md as tmd
     from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
     from svt_av1_tpu_torch.utils.clip import make_clip
     from svt_av1_tpu_torch.utils.trace import TRACER
     frames = make_clip(w=WIDTH, h=HEIGHT, frames=FRAMES, seed=3)
     cfg = preset_config(width=WIDTH, height=HEIGHT, qp=QP, preset=PRESET,
                         intra_period=0, device="cuda")
+    # the plain trim and rate are counted while the main path runs: the
+    # fused kernel replaces both there
+    plain_calls = collections.Counter()
+    saved = {nm: getattr(tmd, nm) for nm in ("rdoq_trim_j", "_rate_cdf_j")}
+
+    def counted(nm, fn):
+        def call(*a, **k):
+            plain_calls[nm] += 1
+            return fn(*a, **k)
+        return call
+
+    for nm, fn in saved.items():
+        setattr(tmd, nm, counted(nm, fn))
     TRACER.enabled = True
     TRACER.reset()
     dev.LAUNCHES.clear()
     dev.LAUNCH_SHAPES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ivf = encode_ivf(frames, cfg)
-    torch.cuda.synchronize()
+    try:
+        ivf = encode_ivf(frames, cfg)
+        torch.cuda.synchronize()
+    finally:
+        for nm, fn in saved.items():
+            setattr(tmd, nm, fn)
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
     shapes = dict(dev.LAUNCH_SHAPES)
@@ -238,13 +357,18 @@ def phase_slice(torch):
         raise SystemExit(f"stream differs from the JAX golden: {len(ivf)} "
                          f"bytes sha256 {sha}, want {GOLDEN_BYTES} bytes "
                          f"sha256 {GOLDEN_SHA256}")
-    if launches.get("quantize_qv", 0) <= 0:
-        raise SystemExit("the main path never launched quantize_qv")
-    print(f"[slice] stream equals the JAX golden; quantize_qv launches "
-          f"{launches['quantize_qv']}", flush=True)
+    if launches.get("quant_stage_rdoq", 0) + launches.get("quant_stage",
+                                                           0) <= 0:
+        raise SystemExit("the main path never launched the fused kernel")
+    if plain_calls:
+        raise SystemExit(f"the plain trim or rate ran on the main path: "
+                         f"{dict(plain_calls)}")
+    print(f"[slice] stream equals the JAX golden; launches {launches}; "
+          f"plain rdoq_trim_j / _rate_cdf_j calls 0", flush=True)
     return {"seconds": dt, "seconds_per_frame": dt / FRAMES,
             "keyframe_span_s": keyframes, "bytes": len(ivf),
             "sha256": sha, "launches": launches,
+            "plain_trim_rate_calls": dict(plain_calls),
             "launch_shapes": {f"{k[0]} B={k[1]} n={k[2]} ls={k[3]}": v
                               for k, v in sorted(shapes.items())},
             "spans": spans}, shapes
@@ -303,26 +427,46 @@ def phase_profile(torch, np) -> dict:
     return res
 
 
-def kernel_entries(torch, np, launches, shapes) -> list:
-    """The kernels line: each kernel timed at the heaviest shape (B * n)
-    that the main path gave it, against its plain version."""
-    shapes = [k for k in shapes if k[0] == "quantize_qv"]
-    _, b, n, ls = max(shapes, key=lambda k: (k[1] * k[2], k))
-    row = _quant_compare(torch, np, b, n, ls, seed=11, timed=True)
-    if not row["exact"]:
-        raise SystemExit(f"quantize_qv kernel != plain at {row}")
-    return [{
-        "name": "quantize_qv", "route": "cuda",
-        "source": "svt_av1_tpu_torch/csrc/quant.cu",
-        "replaces": "svt_av1_tpu/ops/device.py:728 quantize_pallas "
-                    "(quantize_qv contract, device.py:250)",
-        "launches": launches["quantize_qv"],
-        "exact": row["exact"], "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"], "kernel_ms": row["ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
-        "shape": {"B": b, "n": n, "log_scale": ls},
-    }]
+def kernel_entries(torch, launches, shapes, sass, int32_ops) -> list:
+    """The kernels line: the kernel in each mode, timed at the heaviest
+    shape (B * n) that the main path gave that mode — the quantize-only
+    mode, which the main path does not launch, at the heaviest fused
+    shape — against its plain version."""
+    replaces = "svt_av1_tpu/ops/device.py:728 quantize_pallas " \
+        "(quantize_qv contract, device.py:250)"
+    fused = replaces + "; fused with _rate_cdf_j " \
+        "svt_av1_tpu/ops/device_md.py:198"
+    what = {
+        "quantize_qv": ("quantize only", replaces),
+        "quant_stage": ("quantize + rate (RDOQ off)", fused),
+        "quant_stage_rdoq": ("quantize + RDOQ-lite trim + rate",
+                             fused + " and rdoq_trim_j device_md.py:216")}
+    heaviest = {}
+    for k in shapes:
+        heaviest[k[0]] = max(heaviest.get(k[0], k), k,
+                             key=lambda s: (s[1] * s[2], s))
+    out = []
+    for name in _modes():
+        key = heaviest.get(name) or max(heaviest.values(),
+                                        key=lambda s: (s[1] * s[2], s))
+        _, b, n, ls = key
+        ins = _stage_inputs(torch, n, ls, b, seed=11)
+        row = _check(torch, name, *ins, ls)
+        if not row["exact"]:
+            raise SystemExit(f"{name} kernel != plain at {row}")
+        _timed(torch, row, name, *ins, ls, sass, int32_ops)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "svt_av1_tpu_torch/csrc/quant.cu",
+            "replaces": what[name][1], "mode": what[name][0],
+            "launches": launches.get(name, 0),
+            "exact": row["exact"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "kernel_ms": row["ms"],
+            "call_ms": row["call_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "shape": {"B": b, "n": n, "log_scale": ls}})
+    return out
 
 
 def main() -> int:
@@ -333,10 +477,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     env = phase_environment(torch)
-    build = phase_build()
-    grid = phase_kernels(torch, np)
+    build, sass = phase_build()
+    grid = phase_kernels(torch, sass, env["int32_ops_per_s"])
     slice_res, shapes = phase_slice(torch)
-    kernels = kernel_entries(torch, np, slice_res["launches"], shapes)
+    kernels = kernel_entries(torch, slice_res["launches"], shapes, sass,
+                             env["int32_ops_per_s"])
     prof = phase_profile(torch, np)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -6,8 +6,9 @@ Every function returns the same integers as its JAX twin; the tests hold
 them against it on the CPU.
 
 The quantizer is the one kernel written by hand: ``quantize_qv`` launches
-the CUDA kernel of ``csrc/quant.cu`` on a CUDA tensor and runs
-``quantize_qv_plain`` only on a CPU tensor. Everything else here is plain
+the CUDA kernel of ``csrc/quant.cu`` (quantize-only mode) on a CUDA
+tensor and runs ``quantize_qv_plain`` only on a CPU tensor; the same
+kernel's fused modes serve ``device_md.quant_stage_j``. Everything else here is plain
 PyTorch on the card (in the JAX package it is XLA, not Pallas).
 
 Integer exactness notes: inverse transforms are normative and spec stage
@@ -33,8 +34,8 @@ from svt_av1_tpu_torch.utils.blocks import (DC_PRED, H_PRED, PAETH_PRED,
                                             SMOOTH_H_PRED, SMOOTH_PRED,
                                             SMOOTH_V_PRED, V_PRED)
 
-# launches of each hand-written kernel, and of each (kernel, B, n,
-# log_scale) shape: a wrapper counts only where it launches its kernel
+# launches of each hand-written kernel (per mode), and of each (mode, B,
+# n, log_scale) shape: a wrapper counts only where it launches its kernel
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
@@ -286,66 +287,142 @@ def quantize_qv_plain(coeff, scan: np.ndarray, qv, log_scale: int, bd: int):
 
 # The Hopper kernel (csrc/quant.cu) replaces the JAX package's Pallas
 # kernel svt_av1_tpu/ops/device.py:quantize_pallas (body _quant_kernel),
-# with the contract of its per-lane twin quantize_qv, which is what the
-# full loop calls. Bound: bytes — about 12 B per coefficient (read the
-# int32 coefficient, write int32 q and dq) plus 4 B per row in (qindex)
-# and 4 B per row out (eob); some 15 integer operations per coefficient
-# are far below the card's rate. Design: one thread block per row, a
-# single pass over the row that reads each coefficient once and writes
-# q and dq once, with the eob fused as a block max-reduction over the
-# inverse scan, so nothing but the outputs reaches device memory.
-_QUANT_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
+# with the contract of its per-lane twin quantize_qv, and fuses the full
+# loop's two consumers of its result, the RDOQ-lite trim and the CDF
+# level rate (device_md.quant_stage_j). One kernel, three modes:
+QUANT_ONLY, QUANT_RATE, QUANT_TRIM_RATE = 0, 1, 2
+# launch counters, one per mode
+MODE_NAMES = {QUANT_ONLY: "quantize_qv", QUANT_RATE: "quant_stage",
+              QUANT_TRIM_RATE: "quant_stage_rdoq"}
+_QUANT_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
     + [ctypes.c_void_p]
+# the current stream's raw handle without building a Stream object (the
+# public call is the fallback)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 @functools.lru_cache(maxsize=1)
 def _quant_lib() -> ctypes.CDLL:
     lib = cuda_build.load("quant")
-    lib.svt_quantize_qv_cuda.argtypes = _QUANT_ARGTYPES
-    lib.svt_quantize_qv_cuda.restype = ctypes.c_int
+    lib.svt_quant_stage_cuda.argtypes = _QUANT_ARGTYPES
+    lib.svt_quant_stage_cuda.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=16)
+def _packed_params(bd: int, log_scale: int, device: torch.device):
+    """The kernel's per-qindex parameters, int32 [256][2][8]: for DC and
+    AC, (zbin and round rounded down by log_scale, quant, quant_shift,
+    dequant, the CDF qindex bucket, 0, 0). The ranges the kernel's
+    product chain relies on are checked here."""
+    from svt_av1_tpu_torch.entropy.cdf import coef_qctx
+    tz, tr, tq, ts, td = _quant_tables_np(bd)          # each [256, 2]
+    half = (1 << log_scale) >> 1
+    out = np.zeros((256, 2, 8), np.int64)
+    out[..., 0] = (tz + half) >> log_scale
+    out[..., 1] = (tr + half) >> log_scale
+    out[..., 2], out[..., 3], out[..., 4] = tq, ts, td
+    out[..., 5] = np.array([coef_qctx(q) for q in range(256)])[:, None]
+    if not (np.abs(tq).max() <= 1 << 15 and ts.min() >= 0
+            and ts.max() <= 1 << 16 and np.abs(out).max() < 1 << 31):
+        raise ValueError("quantizer tables outside the kernel's ranges")
+    return const(out.astype(np.int32), device)
+
+
+_LAUNCH_CONSTS: dict = {}
+
+
+def _launch_consts(scan: np.ndarray, bd: int, log_scale: int,
+                   device: torch.device):
+    """(parameter table pointer, inverse scan pointer) on ``device``,
+    cached by the scan array's identity (the entry keeps the array and
+    the tensors alive, so the id is not reused; the scans of
+    utils.blocks.get_scan are cached arrays that nothing writes), so a
+    launch neither hashes the scan nor builds a table."""
+    key = (id(scan), bd, log_scale, device)
+    hit = _LAUNCH_CONSTS.get(key)
+    if hit is not None and hit[0] is scan:
+        return hit[1]
+    params = _packed_params(bd, log_scale, device)
+    iscan = _scan_t(scan, device)[1]
+    if len(_LAUNCH_CONSTS) >= 512:
+        _LAUNCH_CONSTS.clear()
+    ptrs = (params.data_ptr(), iscan.data_ptr())
+    _LAUNCH_CONSTS[key] = (scan, ptrs, params, iscan)
+    return ptrs
+
+
+def quant_stage_launch(mode: int, coeff, scan: np.ndarray, qv,
+                       log_scale: int, bd: int, lam=None,
+                       rate_ptrs=(None, None, 0)):
+    """Launch csrc/quant.cu on CUDA tensors in ``mode`` (QUANT_ONLY,
+    QUANT_RATE or QUANT_TRIM_RATE). coeff [B, n] int32 (n 16, 64, 256,
+    1024), qv [B] int32, lam [B] int64 (trim); ``rate_ptrs``: (pointer
+    to the level-cost table [4, 256] int32, pointer to the eob bits LUT
+    [>= n + 1] int32, gq12), for the rate modes. Returns (q, dq, eob)
+    and, with a rate mode, rate [B] int64 (views of one allocation).
+    Raises on what the kernel does not take and on a failed launch;
+    never falls back."""
+    name = MODE_NAMES[mode]
+    device = coeff.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {device}")
+    if coeff.dtype != torch.int32 or coeff.dim() != 2:
+        raise ValueError(f"{name}: coeff must be [B, n] int32")
+    b, n = coeff.shape
+    if n not in (16, 64, 256, 1024) or len(scan) != n:
+        raise ValueError(f"{name}: unsupported row length {n}")
+    if log_scale not in (0, 1, 2):
+        raise ValueError(f"{name}: log_scale {log_scale}")
+    if qv.dtype != torch.int32 or qv.shape != (b,) or qv.device != device:
+        raise ValueError(f"{name}: qv must be [B] int32 on coeff's device")
+    if not (coeff.is_contiguous() and qv.is_contiguous()
+            and coeff.data_ptr() % 16 == 0):
+        raise ValueError(f"{name}: coeff and qv must be contiguous, coeff "
+                         f"16-byte aligned")
+    trim = mode == QUANT_TRIM_RATE
+    if trim and (lam is None or lam.dtype != torch.int64
+                 or lam.shape != (b,) or lam.device != device
+                 or not lam.is_contiguous()):
+        raise ValueError(f"{name}: lam must be [B] int64 on coeff's device")
+    with_rate = mode != QUANT_ONLY
+    if with_rate and not (rate_ptrs[0] and rate_ptrs[1]):
+        raise ValueError(f"{name}: the rate needs its tables")
+    # one allocation: q | dq | eob | (pad to 8 B) rate
+    bn = b * n
+    pad = b % 2
+    parts = [bn, bn, b] + ([pad, 2 * b] if with_rate else [])
+    buf = torch.empty(sum(parts), dtype=torch.int32, device=device)
+    views = buf.split(parts)
+    q, dq, eob = views[0].view(b, n), views[1].view(b, n), views[2]
+    rate = views[4].view(torch.int64) if with_rate else None
+    if b:
+        params, iscan = _launch_consts(scan, bd, log_scale, device)
+        stream = _RAW_STREAM(device.index) if _RAW_STREAM is not None \
+            else torch.cuda.current_stream(device).cuda_stream
+        err = _quant_lib().svt_quant_stage_cuda(
+            coeff.data_ptr(), qv.data_ptr(),
+            lam.data_ptr() if trim else None, params, rate_ptrs[0],
+            rate_ptrs[1], iscan, q.data_ptr(), dq.data_ptr(),
+            eob.data_ptr(), rate.data_ptr() if with_rate else None, b, n,
+            log_scale, rate_ptrs[2], mode, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed "
+                               f"(cudaError {err})")
+        LAUNCHES[name] += 1
+        LAUNCH_SHAPES[(name, b, n, log_scale)] += 1
+    return (q, dq, eob) if rate is None else (q, dq, eob, rate)
 
 
 def quantize_qv(coeff, scan: np.ndarray, qv, log_scale: int, bd: int):
     """Quantize + dequantize [B, n] int32 coefficients with per-row qindex
     ``qv`` [B] int32; returns (q, dq, eob) as in ``quantize_qv_plain``.
-    On a CUDA tensor this launches the hand-written kernel (it never falls
-    back); on a CPU tensor it runs the plain version."""
+    On a CUDA tensor this launches the hand-written kernel in its
+    quantize-only mode (it never falls back); on a CPU tensor it runs the
+    plain version."""
     if coeff.device.type == "cpu":
         return quantize_qv_plain(coeff, scan, qv, log_scale, bd)
-    if coeff.device.type != "cuda":
-        raise ValueError(f"quantize_qv: no kernel for {coeff.device}")
-    if coeff.dtype != torch.int32 or coeff.dim() != 2:
-        raise ValueError("quantize_qv: coeff must be [B, n] int32")
-    b, n = coeff.shape
-    if n not in (16, 64, 256, 1024) or len(scan) != n:
-        raise ValueError(f"quantize_qv: unsupported row length {n}")
-    if log_scale not in (0, 1, 2):
-        raise ValueError(f"quantize_qv: log_scale {log_scale}")
-    if (qv.dtype != torch.int32 or qv.shape != (b,)
-            or qv.device != coeff.device):
-        raise ValueError("quantize_qv: qv must be [B] int32 on coeff's "
-                         "device")
-    if not (coeff.is_contiguous() and qv.is_contiguous()):
-        raise ValueError("quantize_qv: coeff and qv must be contiguous")
-    q = torch.empty_like(coeff)
-    dq = torch.empty_like(coeff)
-    eob = torch.empty(b, dtype=torch.int32, device=coeff.device)
-    if b == 0:
-        return q, dq, eob
-    tabs = _quant_tables(bd, coeff.device)
-    _, iscan = _scan_t(scan, coeff.device)
-    stream = torch.cuda.current_stream(coeff.device).cuda_stream
-    err = _quant_lib().svt_quantize_qv_cuda(
-        coeff.data_ptr(), qv.data_ptr(), tabs.data_ptr(), iscan.data_ptr(),
-        q.data_ptr(), dq.data_ptr(), eob.data_ptr(), b, n, log_scale,
-        stream)
-    if err != 0:
-        raise RuntimeError(f"quantize_qv kernel launch failed "
-                           f"(cudaError {err})")
-    LAUNCHES["quantize_qv"] += 1
-    LAUNCH_SHAPES[("quantize_qv", b, n, log_scale)] += 1
-    return q, dq, eob
+    return quant_stage_launch(QUANT_ONLY, coeff, scan, qv, log_scale, bd)
 
 
 # --- intra predictors -------------------------------------------------------------

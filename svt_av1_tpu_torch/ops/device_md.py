@@ -4,8 +4,9 @@
 ``decide_block_batch_dev`` reproduces ``pipeline.md.decide_block_batch``
 bit for bit on a torch device: all candidate intra predictions
 (directional zones Z1/Z2/Z3 and CfL included), the integer fast-loop
-ranking, the NFL full loop (forward transform, quantize, RDOQ-lite trim,
-CDF-LUT rate, dequantize, inverse transform, recon) and the luma tx-type
+ranking, the NFL full loop (forward transform, the quantization stage —
+quantize, RDOQ-lite trim, CDF-LUT rate, dequantize: one launch of the
+hand-written kernel on CUDA — inverse transform, recon) and the luma tx-type
 sweep. Every cost is integer (md.RATE_Q fixed point), so the argmin and
 stable-argsort decisions agree exactly with the host NumPy path and with
 the JAX twin, and the encoder's streams are byte-identical on any device.
@@ -228,6 +229,52 @@ def rdoq_trim_j(qc, dq, eob, scan, tx_size, qv, plane_type: int, lam_qv):
             new_eob)
 
 
+def quant_stage_plain(coded, scan, qv, log_scale: int, bd: int,
+                      tx_size: int, plane_type: int, rdoq_lam_qv=None):
+    """The quantization stage of one full-loop pass in plain PyTorch:
+    quantize_qv_plain, then (with a lambda vector) rdoq_trim_j, then
+    _rate_cdf_j on the trimmed levels. Returns (q, dq [B, n] int32,
+    eob [B] int32, rate [B] int64)."""
+    qc, dq, eo = dev.quantize_qv_plain(coded, scan, qv, log_scale, bd)
+    if rdoq_lam_qv is not None:
+        qc, dq, eo = rdoq_trim_j(qc, dq, eo, scan, tx_size, qv, plane_type,
+                                 rdoq_lam_qv)
+    return qc, dq, eo, _rate_cdf_j(qc, eo, qv, plane_type, tx_size)
+
+
+@functools.lru_cache(maxsize=64)
+def _stage_consts(plane_type: int, tx_size: int, device: torch.device):
+    """The fused kernel's rate operands on ``device``: (pointer to the
+    level-cost table [4, 256], pointer to the eob bits LUT, both int32
+    (their values fit), the trim's gq12), and the tensors, which the
+    cache keeps alive."""
+    from svt_av1_tpu_torch.entropy import coeff_ctx as cc
+    tab = _level_cost_tab(plane_type, int(cc.txs_ctx(tx_size)))
+    if not 0 <= tab.min() <= tab.max() < 1 << 31:
+        raise ValueError("level-cost table outside int32")
+    lut = const(tab.astype(np.int32), device)
+    ebl = const(md._eob_bits_lut().astype(np.int32), device)
+    gq12 = (64, 330, 2700)[quant_host.tx_scale(tx_size)]
+    return (lut.data_ptr(), ebl.data_ptr(), gq12), (lut, ebl)
+
+
+def quant_stage_j(coded, scan, qv, log_scale: int, bd: int, tx_size: int,
+                  plane_type: int, rdoq_lam_qv=None):
+    """quant_stage_plain in one launch of the hand-written kernel
+    (csrc/quant.cu, fused mode) on a CUDA tensor; it never falls back.
+    On a CPU tensor it runs quant_stage_plain."""
+    device = coded.device
+    if device.type == "cpu":
+        return quant_stage_plain(coded, scan, qv, log_scale, bd, tx_size,
+                                 plane_type, rdoq_lam_qv)
+    if device.type != "cuda":
+        raise ValueError(f"quant_stage_j: no kernel for {device}")
+    ptrs = _stage_consts(plane_type, tx_size, device)[0]
+    mode = dev.QUANT_RATE if rdoq_lam_qv is None else dev.QUANT_TRIM_RATE
+    return dev.quant_stage_launch(mode, coded, scan, qv, log_scale, bd,
+                                  lam=rdoq_lam_qv, rate_ptrs=ptrs)
+
+
 def _full_loop_j(srcs, preds, tts, tt_set, tx_size, size, qv, bd,
                  plane_type, rdoq_lam_qv=None):
     """Twin of md._full_loop. tts [B]; tt_set: static tuple of the tx
@@ -250,11 +297,8 @@ def _full_loop_j(srcs, preds, tts, tt_set, tx_size, size, qv, bd,
         coeffs = dev.fwd_tx2d(resid, int(tt), w, h)
         coded = coeffs[:, :ch, :cw].reshape(b, -1).contiguous()
         scan = get_scan(tx_size, int(tt))
-        qc, dq, eo = dev.quantize_qv(coded, scan, qv, log_scale, bd)
-        if rdoq_lam_qv is not None:
-            qc, dq, eo = rdoq_trim_j(qc, dq, eo, scan, tx_size,
-                                     qv, plane_type, rdoq_lam_qv)
-        rt = _rate_cdf_j(qc, eo, qv, plane_type, tx_size)
+        qc, dq, eo, rt = quant_stage_j(coded, scan, qv, log_scale, bd,
+                                       tx_size, plane_type, rdoq_lam_qv)
         full = torch.zeros((b, h, w), dtype=torch.int32, device=device)
         full[:, :ch, :cw] = dq.reshape(-1, ch, cw).to(torch.int32)
         r = dev.inv_tx2d(full, int(tt), w, h, bd=bd)

@@ -1,6 +1,7 @@
-"""On-card checks of the PyTorch port: kernels against their plain
-versions, tie-breaks on CUDA, and the encoder on ``cuda`` against the
-same encoder on the CPU.
+"""On-card checks of the PyTorch port: the quantization kernel in both
+modes (quantize-only and the fused quantize + RDOQ-lite trim + rate)
+against its plain versions, launch counts, tie-breaks on CUDA, and the
+encoder on ``cuda`` against the same encoder on the CPU.
 
 Every test needs a CUDA device and skips without one (marker ``cuda``).
 The file imports nothing of JAX, so it also runs on a GPU machine without
@@ -18,6 +19,7 @@ from svt_av1_tpu_torch.ops import device_md as tmd
 from svt_av1_tpu_torch.ops import quant as quant_ops
 from svt_av1_tpu_torch.utils.blocks import (TX_4X4, TX_8X8, TX_16X16,
                                             TX_32X32, get_scan)
+from tests.torch_quant_cases import TIE_ROWS, stage_case, stage_rows
 
 pytestmark = pytest.mark.cuda
 TX_OF_N = {16: TX_4X4, 64: TX_8X8, 256: TX_16X16, 1024: TX_32X32}
@@ -76,6 +78,73 @@ def test_quantize_qv_kernel_refuses_bad_operands(cuda):
     assert q_.shape == (0, 16) and eob.shape == (0,)
 
 
+@pytest.mark.parametrize("n", [16, 64, 256, 1024])
+def test_quant_stage_kernel_matches_plain(cuda, n):
+    """Both modes of the kernel against their plain versions on the card
+    and on the CPU, exact, over log_scale, plane type, RDOQ on/off and
+    B in {0, 1, 8, 37, 1001}; each call with rows is one launch."""
+    for ls in (0, 1, 2):
+        for b in (0, 1, 8, 37, 1001):
+            coeff, qv, lam, scan, tx = stage_rows(n, ls, b, 7 * n + ls + b)
+            c, q, lm = (torch.as_tensor(a, device=cuda)
+                        for a in (coeff, qv, lam))
+            before = dev.LAUNCHES["quantize_qv"]
+            got = dev.quantize_qv(c, scan, q, ls, 8)
+            assert dev.LAUNCHES["quantize_qv"] == before + (b > 0)
+            want = dev.quantize_qv_plain(c, scan, q, ls, 8)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            for plane_type in (0, 1):
+                for rl, mode in ((None, "quant_stage"),
+                                 (lm, "quant_stage_rdoq")):
+                    before = dev.LAUNCHES[mode]
+                    got = tmd.quant_stage_j(c, scan, q, ls, 8, tx,
+                                            plane_type, rl)
+                    assert dev.LAUNCHES[mode] == before + (b > 0)
+                    want = tmd.quant_stage_plain(c, scan, q, ls, 8, tx,
+                                                 plane_type, rl)
+                    cpu = tmd.quant_stage_j(
+                        torch.as_tensor(coeff), scan, torch.as_tensor(qv),
+                        ls, 8, tx, plane_type,
+                        None if rl is None else torch.as_tensor(lam))
+                    for g, w, h in zip(got, want, cpu):
+                        assert g.dtype == w.dtype and g.shape == w.shape
+                        assert torch.equal(g, w)
+                        assert torch.equal(g.cpu(), h)
+
+
+def test_full_loop_pass_is_one_launch_on_card(cuda):
+    """One full-loop pass (luma, one tx type, one candidate) launches the
+    fused kernel once and nothing else of the quantizer."""
+    rng = np.random.default_rng(1)
+    b = 9
+    srcs = rng.integers(0, 256, (b, 16, 16))
+    edges = rng.integers(0, 256, (b, 33)).astype(np.int32)
+    ha = np.ones(b, bool)
+    qp = quant_ops.make_quant_params(70)
+    before = dict(dev.LAUNCHES)
+    tmd.decide_block_batch_dev(0, srcs, edges, edges, ha, ha, [(0, 0)], qp,
+                               16, 30.0, nfl=1, rdoq=True, device="cuda")
+    assert dev.LAUNCHES["quant_stage_rdoq"] == \
+        before.get("quant_stage_rdoq", 0) + 1
+    for mode in ("quant_stage", "quantize_qv"):
+        assert dev.LAUNCHES[mode] == before.get(mode, 0)
+
+
+def test_quant_stage_refuses_bad_operands(cuda):
+    coeff, qv, lam, scan, tx = stage_case(64, 0, 12, 3)
+    c, q, lm = (torch.as_tensor(a, device=cuda) for a in (coeff, qv, lam))
+    with pytest.raises(ValueError):
+        tmd.quant_stage_j(c, scan, q, 0, 8, tx, 0, lm.to(torch.int32))
+    with pytest.raises(ValueError):
+        tmd.quant_stage_j(c, scan, q, 0, 8, tx, 0, lm[:5])
+    buf = torch.zeros(c.numel() + 4, dtype=torch.int32, device=cuda)
+    misaligned = buf[1:1 + c.numel()].view(c.shape)     # 4 B past 16 B
+    misaligned.copy_(c)
+    with pytest.raises(ValueError):
+        tmd.quant_stage_j(misaligned, scan, q, 0, 8, tx, 0, lm)
+
+
 def test_fast_cost_tie_keeps_candidate_order_on_card(cuda):
     """V and H tie in the fast loop (flat edges, lambda q 1): the stable
     argsort keeps the first-listed mode on the card as on the CPU."""
@@ -116,6 +185,19 @@ def test_rdoq_first_minimum_on_card(cuda):
     assert outs[0][2].tolist() == [5] * b
     for g, w in zip(*outs):
         assert torch.equal(g, w)
+    # the fused kernel: level-1 rows at qindex 1 and lambda 0 cost the
+    # same at every candidate eob, so the first minimum is eob 0
+    for n, ls in ((16, 1), (64, 2), (256, 1)):
+        coeff, qv, lam, scan, tx = stage_case(n, ls, 12, n + ls)
+        outs = []
+        for d in ("cuda", "cpu"):
+            T = (lambda a, d=d: torch.as_tensor(a, device=d))
+            outs.append([t.cpu() for t in tmd.quant_stage_j(
+                T(coeff), scan, T(qv), ls, 8, tx, 0, T(lam))])
+        rows = list(TIE_ROWS)
+        assert outs[0][2][rows].tolist() == [0] * len(rows)
+        for g, w in zip(*outs):
+            assert torch.equal(g, w)
 
 
 def test_encode_on_card_equals_cpu(cuda):
