@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    rate (SMs x 64 INT32 lanes x the maximum SM clock), torch/CUDA/nvcc
    versions, whether triton imports;
 2. build: every hand-written CUDA kernel from the checkout's sources,
-   and the integer SASS instructions of each kernel instantiation
-   (``cuobjdump -sass``) for the operations bound;
+   and, as a diagnostic, the integer SASS instructions of each kernel
+   instantiation (``cuobjdump -sass``);
 3. the quantization kernel in both modes — quantize-only
    (``quantize_qv``) and fused quantize + RDOQ-lite trim + rate
    (``quant_stage_j``) — against its plain PyTorch versions on the card,
@@ -55,9 +55,32 @@ WIDTH, HEIGHT, FRAMES, QP, PRESET = 1920, 1080, 2, 40, 5
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (data sheet)
 INT32_LANES_PER_SM = 64          # Hopper SM: 64 INT32 lanes (128 FP32)
 OUT_DIR = "chiprun_out"
-# SASS opcodes (before the first '.') of integer work: the integer
-# multiply-adds run on the FMA pipe, the rest on the INT32 (ALU) pipe;
-# each pipe takes 64 lanes a clock on an SM, and the SM issues 128
+# The integer work the quantization stage needs, in 32-bit instructions
+# (INT32 pipe, IMAD pipe), counted from its arithmetic (the formulas at
+# the head of csrc/quant.cu), not from the kernel's code. A product
+# takes one IMAD per 32-bit word of the result it needs: a 64-bit
+# product of two 32-bit operands 2, of a 64-bit and a 32-bit one 3, of
+# two 64-bit ones 4. A 64-bit add, shift, compare or select takes 2.
+# Per coefficient, quantize: |c| 1, + round 1, clamp 2, * quant 1 IMAD
+# (fits 32 bits), >> 16 and + tmp 2, * qshift 2 IMAD, >> 1, the zbin test
+# and select 2, the sign test 1, q's negate and select 2, * dequant
+# 2 IMAD, >> 1, dq's negate and select 2, the eob candidate's select and
+# max 2.
+OPS_QUANT = (17, 5)
+# Per coefficient, rate: min(|q|, 255) 1, the LUT address 1, the 64-bit
+# sum 2.
+OPS_RATE = (4, 0)
+# Per scan position up to and including the eob, in rows with qindex > 0
+# (the trim reads nothing past the eob and skips lossless rows): the
+# k < eob test 1, zeroing dd and dr 3, dq * dq 2 IMAD, * gq12 3 IMAD,
+# >> 12 2, the two 64-bit suffix sums 4, ebits(e) 2, sufr + ebits(eob) -
+# ebits(e) 2, lam/2 * t 4 IMAD, >> 8 2, sufd << 9 2, the subtraction 2,
+# the e > eob select of 1 << 62 3, the first-minimum compare of
+# (cost, index) 2 and its selects 3, zeroing q and dq past the new eob 3.
+OPS_TRIM = (31, 9)
+# SASS opcodes (before the first '.') of integer work, for the [build]
+# diagnostic: the integer multiply-adds run on the FMA pipe, the rest on
+# the INT32 (ALU) pipe
 SASS_IMAD = {"IMAD", "IMUL"}
 SASS_ALU = {"IADD3", "IADD", "ISETP", "IMNMX", "VIMNMX", "IABS", "LOP3",
             "LOP", "SHF", "SHL", "SHR", "SEL", "LEA", "PRMT", "POPC", "FLO",
@@ -107,9 +130,9 @@ def phase_environment(torch) -> dict:
 def sass_counts(lib: Path) -> dict:
     """{(n, mode): [INT32-pipe, integer multiply-add, all instructions]}
     of each instantiation of csrc/quant.cu's kernel, from ``cuobjdump
-    -sass``: static counts, taken as what each thread runs (the kernel
-    has no data-dependent loop; the branches a lane skips are counted,
-    so the counts are high by those)."""
+    -sass``: static counts of the kernel's code (moves, shuffle scans,
+    the argmin and branches a lane skips included), a diagnostic beside
+    the function's own count in OPS_*; the bound does not use them."""
     from svt_av1_tpu_torch import cuda_build
     tool = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -145,11 +168,10 @@ def phase_build() -> dict:
     for (n, mode), (alu, imad, n_all) in sorted(sass.items()):
         print(f"[build] quant_stage_kernel<{n}, mode {mode}>: {alu} INT32 "
               f"+ {imad} IMAD of {n_all} SASS instructions per thread "
-              f"({(alu + imad) / 4:.1f} integer per coefficient)",
-              flush=True)
+              f"({(alu + imad) / 4:.1f} integer per coefficient; "
+              f"diagnostic, not the bound)", flush=True)
     return {"seconds": dt, "nvcc_output": logs,
-            "sass": {f"n={n} mode={m}": v for (n, m), v in sass.items()}}, \
-        sass
+            "sass": {f"n={n} mode={m}": v for (n, m), v in sass.items()}}
 
 
 _CYCLES_PER_MS = []
@@ -230,22 +252,33 @@ def _mode_fns(mode: str, c, q, lm, scan, tx, ls, plane_type=0):
                                           rl))
 
 
-def _bound(mode: str, b: int, n: int, sass: dict, int32_ops: float):
-    """(bound ms, "bytes" or "operations"): 4 B read and 8 B written per
+def _bound(mode: str, c, q, scan, ls: int, int32_ops: float):
+    """(bound ms, "bytes" or "operations", (INT32, IMAD) instructions) of
+    one call on these inputs. Bytes: 4 B read and 8 B written per
     coefficient; per row the qindex in and the eob out, plus the rate
-    out (fused) and the lambda in (trim). Operations: the kernel's SASS
-    instructions, once per thread, n / 4 threads a row — the INT32-pipe
-    ones and the integer multiply-adds (FMA pipe) each at the card's
-    int32 rate, all of them at twice it (the SM's issue rate); the
-    slowest of the three."""
-    per_row = {"quantize_qv": 8, "quant_stage": 16, "quant_stage_rdoq": 24}
-    nbytes = b * n * 12 + b * per_row[mode]
-    alu, imad, n_all = sass[(n, _modes()[mode])]
-    threads = b * (n // 4)
+    out (fused) and the lambda in (trim); the parameter table, inverse
+    scan and, for the rate, the level-cost and eob-bits tables, once.
+    Operations: OPS_* over the coefficients and, for the trim, over the
+    scan positions this data's rows need; the INT32 pipe and the IMAD
+    pipe each at the card's int32 rate, side by side."""
+    from svt_av1_tpu_torch.ops import device as dev
+    b, n = c.shape
+    rate, trim = mode != "quantize_qv", mode == "quant_stage_rdoq"
+    nbytes = b * n * 12 + b * (8 + 8 * rate + 8 * trim) + 16384 + 4 * n
+    alu, imad = (b * n * k for k in OPS_QUANT)
+    if rate:
+        nbytes += 4096 + 4 * (n + 1)
+        alu += b * n * OPS_RATE[0]
+        imad += b * n * OPS_RATE[1]
+    if trim:
+        eob = dev.quantize_qv_plain(c, scan, q, ls, 8)[2].long()
+        positions = int(((eob + 1) * (q > 0)).sum())
+        alu += positions * OPS_TRIM[0]
+        imad += positions * OPS_TRIM[1]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = threads * max(alu, imad, n_all / 2) / int32_ops
+    t_ops = max(alu, imad) / int32_ops
     return 1e3 * max(t_bytes, t_ops), \
-        "bytes" if t_bytes >= t_ops else "operations"
+        "bytes" if t_bytes >= t_ops else "operations", (alu, imad)
 
 
 def _check(torch, mode, c, q, lm, scan, tx, ls, plane_type=0) -> dict:
@@ -260,17 +293,17 @@ def _check(torch, mode, c, q, lm, scan, tx, ls, plane_type=0) -> dict:
             "plane_type": plane_type, "exact": exact, "max_abs_err": err}
 
 
-def _timed(torch, row, mode, c, q, lm, scan, tx, ls, sass, int32_ops,
+def _timed(torch, row, mode, c, q, lm, scan, tx, ls, int32_ops,
            plane_type=0) -> dict:
     kern, plain = _mode_fns(mode, c, q, lm, scan, tx, ls, plane_type)
     row["ms"], row["call_ms"] = _time_ms(torch, kern)
     row["plain_ms"], row["plain_call_ms"] = _time_ms(torch, plain)
-    row["bound_ms"], row["bound_by"] = _bound(mode, row["B"], row["n"],
-                                              sass, int32_ops)
+    row["bound_ms"], row["bound_by"], row["int_instr"] = _bound(
+        mode, c, q, scan, ls, int32_ops)
     return row
 
 
-def phase_kernels(torch, sass: dict, int32_ops: float) -> list:
+def phase_kernels(torch, int32_ops: float) -> list:
     """Every (n, log_scale, B) of the check grid, each kernel mode (the
     fused ones with plane type 0 and 1) against its plain version, exact;
     each mode timed at B=8 (a typical wave) and B=8160 (a 1080p frame's
@@ -287,8 +320,7 @@ def phase_kernels(torch, sass: dict, int32_ops: float) -> list:
                             raise SystemExit(f"{mode} kernel != plain at "
                                              f"{row}")
                         if b in (8, 8160) and pt == 0:
-                            _timed(torch, row, mode, *ins, ls, sass,
-                                   int32_ops)
+                            _timed(torch, row, mode, *ins, ls, int32_ops)
                         rows.append(row)
     for r in rows:
         if "ms" in r:
@@ -296,8 +328,9 @@ def phase_kernels(torch, sass: dict, int32_ops: float) -> list:
                   f"ls={r['log_scale']}: {r['ms']:.5f} ms (call "
                   f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms "
                   f"(call {r['plain_call_ms']:.4f} ms), bound "
-                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
-                  f"{100 * r['bound_ms'] / r['ms']:.0f}% of bound",
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}; "
+                  f"{r['int_instr'][0]} INT32 + {r['int_instr'][1]} IMAD "
+                  f"instr), {100 * r['bound_ms'] / r['ms']:.0f}% of bound",
                   flush=True)
     print(f"[kernel] quant_stage_kernel exact in every mode at all "
           f"{len(rows)} checks", flush=True)
@@ -427,7 +460,7 @@ def phase_profile(torch, np) -> dict:
     return res
 
 
-def kernel_entries(torch, launches, shapes, sass, int32_ops) -> list:
+def kernel_entries(torch, launches, shapes, int32_ops) -> list:
     """The kernels line: the kernel in each mode, timed at the heaviest
     shape (B * n) that the main path gave that mode — the quantize-only
     mode, which the main path does not launch, at the heaviest fused
@@ -454,7 +487,7 @@ def kernel_entries(torch, launches, shapes, sass, int32_ops) -> list:
         row = _check(torch, name, *ins, ls)
         if not row["exact"]:
             raise SystemExit(f"{name} kernel != plain at {row}")
-        _timed(torch, row, name, *ins, ls, sass, int32_ops)
+        _timed(torch, row, name, *ins, ls, int32_ops)
         out.append({
             "name": name, "route": "cuda",
             "source": "svt_av1_tpu_torch/csrc/quant.cu",
@@ -464,7 +497,8 @@ def kernel_entries(torch, launches, shapes, sass, int32_ops) -> list:
             "ms": row["ms"], "kernel_ms": row["ms"],
             "call_ms": row["call_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"], "int_instr": row["int_instr"],
+            "library_ms": None,
             "shape": {"B": b, "n": n, "log_scale": ls}})
     return out
 
@@ -477,10 +511,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     env = phase_environment(torch)
-    build, sass = phase_build()
-    grid = phase_kernels(torch, sass, env["int32_ops_per_s"])
+    build = phase_build()
+    grid = phase_kernels(torch, env["int32_ops_per_s"])
     slice_res, shapes = phase_slice(torch)
-    kernels = kernel_entries(torch, slice_res["launches"], shapes, sass,
+    kernels = kernel_entries(torch, slice_res["launches"], shapes,
                              env["int32_ops_per_s"])
     prof = phase_profile(torch, np)
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -2,19 +2,21 @@
 """Time the quantizer of two checkouts of this repository on one card,
 in turns.
 
-    python3 svt_av1_tpu_torch/quant_ab.py OTHER_CHECKOUT
+    python3 quant_ab.py OTHER_CHECKOUT
 
 from the root of a checkout, on a machine with one CUDA device. Runs
 the other checkout, this one, this one, the other — each in its own
 process whose working directory is that checkout, so it imports that
-checkout's ``svt_av1_tpu_torch`` and ``chip_smoke``. Each process times
-``quantize_qv`` on CUDA tensors (``chip_smoke._time_ms``: CUDA events
-around 10 back-to-back calls behind a device-side sleep, median of 21)
-at B=8 and B=8160 for n in 16, 64, 256, 1024 (log_scale 0, random
-levels, random qindex), then runs ``chip_smoke.phase_profile`` (one
-profiled wave of the main path: wall time, device busy time, device
-operations). Prints one JSON line per run and writes
-``chiprun_out/quant_ab.json``.
+checkout's ``svt_av1_tpu_torch``. Every process measures with this
+checkout's ``chip_smoke.py`` (loaded from its path), so both trees are
+timed by the same code: ``quantize_qv`` on CUDA tensors
+(``chip_smoke._time_ms``: device ms from CUDA events around 10
+back-to-back calls behind a device-side sleep, median of 21; host ms
+per call over 10 calls with a synchronize, median of 5 windows) at B=8
+and B=8160 for n in 16, 64, 256, 1024 (log_scale 0, random levels,
+random qindex), then ``chip_smoke.phase_profile`` (one profiled wave of
+the main path: wall time, device busy time, device operations). Prints
+one JSON line per run and writes ``chiprun_out/quant_ab.json``.
 """
 
 from __future__ import annotations
@@ -25,10 +27,14 @@ import subprocess
 import sys
 
 CHILD = r"""
+import importlib.util
 import json
+import sys
 import numpy as np
 import torch
-import chip_smoke
+spec = importlib.util.spec_from_file_location("ab_timer", sys.argv[1])
+chip_smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(chip_smoke)
 from svt_av1_tpu_torch.ops import device as dev
 from svt_av1_tpu_torch.utils.blocks import (TX_4X4, TX_8X8, TX_16X16,
                                             TX_32X32, get_scan)
@@ -51,7 +57,9 @@ print(json.dumps({"quantize_qv": rows, "wave": prof}))
 
 
 def run(tree: str) -> dict:
-    res = subprocess.run([sys.executable, "-c", CHILD], cwd=tree,
+    timer = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "chip_smoke.py")
+    res = subprocess.run([sys.executable, "-c", CHILD, timer], cwd=tree,
                          capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise SystemExit(f"run in {tree} failed:\n{res.stdout}\n"

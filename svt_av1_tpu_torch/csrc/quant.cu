@@ -41,16 +41,17 @@
 // 0 <= qshift <= 2^16, so with |tmp| <= 2^15 every intermediate of the
 // product chain stays far inside int64.
 //
-// Bound on the card. Quantize-only: bytes — 4 B read and 8 B written per
-// coefficient, 8 B per row; its sm_90a SASS has about 53 integer
-// instructions per coefficient, below the byte time. Fused with the
-// trim: the same bytes plus 16 B per row (lambda in, rate out), and
-// 140-193 integer instructions per coefficient (the 64-bit trim
-// arithmetic, the scan, the argmin), so at large batches its bound is
-// instructions; chip_smoke.py counts them from this kernel's SASS. On
-// the main path batches are a few rows and every launch is latency; the
-// fusion removes the ~70 torch operators that ran the trim and the rate
-// after the quantizer.
+// Bound on the card (chip_smoke.py computes it per call). Bytes: 4 B
+// read and 8 B written per coefficient, 8 B per row, plus 16 B per row
+// with the trim (lambda in, rate out). Operations: what the formulas
+// above need, counted in 32-bit instructions — 17 INT32 + 5 IMAD per
+// coefficient to quantize, 4 more for the rate, and 31 + 9 per scan
+// position up to the eob for the trim (64-bit products as several
+// IMADs). At 64 INT32 lanes per SM and clock that stays just under the
+// byte time, so every mode is bounded by bytes. On the main path
+// batches are a few rows and every launch is latency; the fusion
+// removes the ~70 torch operators that ran the trim and the rate after
+// the quantizer.
 //
 // Design for the card:
 // - Tiling by row length: each thread holds 4 consecutive coefficients

@@ -296,9 +296,6 @@ MODE_NAMES = {QUANT_ONLY: "quantize_qv", QUANT_RATE: "quant_stage",
               QUANT_TRIM_RATE: "quant_stage_rdoq"}
 _QUANT_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
     + [ctypes.c_void_p]
-# the current stream's raw handle without building a Stream object (the
-# public call is the fallback)
-_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 @functools.lru_cache(maxsize=1)
@@ -360,7 +357,7 @@ def quant_stage_launch(mode: int, coeff, scan: np.ndarray, qv,
     1024), qv [B] int32, lam [B] int64 (trim); ``rate_ptrs``: (pointer
     to the level-cost table [4, 256] int32, pointer to the eob bits LUT
     [>= n + 1] int32, gq12), for the rate modes. Returns (q, dq, eob)
-    and, with a rate mode, rate [B] int64 (views of one allocation).
+    and, with a rate mode, rate [B] int64.
     Raises on what the kernel does not take and on a failed launch;
     never falls back."""
     name = MODE_NAMES[mode]
@@ -388,18 +385,15 @@ def quant_stage_launch(mode: int, coeff, scan: np.ndarray, qv,
     with_rate = mode != QUANT_ONLY
     if with_rate and not (rate_ptrs[0] and rate_ptrs[1]):
         raise ValueError(f"{name}: the rate needs its tables")
-    # one allocation: q | dq | eob | (pad to 8 B) rate
-    bn = b * n
-    pad = b % 2
-    parts = [bn, bn, b] + ([pad, 2 * b] if with_rate else [])
-    buf = torch.empty(sum(parts), dtype=torch.int32, device=device)
-    views = buf.split(parts)
-    q, dq, eob = views[0].view(b, n), views[1].view(b, n), views[2]
-    rate = views[4].view(torch.int64) if with_rate else None
+    # separate allocations: the caching allocator's blocks are 16-byte
+    # aligned, and splitting one buffer into views costs more host time
+    q = torch.empty_like(coeff)
+    dq = torch.empty_like(coeff)
+    eob = qv.new_empty(b)
+    rate = qv.new_empty(b, dtype=torch.int64) if with_rate else None
     if b:
         params, iscan = _launch_consts(scan, bd, log_scale, device)
-        stream = _RAW_STREAM(device.index) if _RAW_STREAM is not None \
-            else torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(device).cuda_stream
         err = _quant_lib().svt_quant_stage_cuda(
             coeff.data_ptr(), qv.data_ptr(),
             lam.data_ptr() if trim else None, params, rate_ptrs[0],

@@ -34,8 +34,8 @@ def stage_case(n: int, log_scale: int, b: int, seed: int):
     coefficients deep in the scan (the tail the trim drops), sparse rows
     of log-uniform magnitudes and dense rows in +-2^17. qindex is random
     with 0 (lossless: no trim) and 255 present; lambda is the encoder's
-    for the row's qindex, with one row near 2^61 so the trim's products
-    wrap."""
+    for the row's qindex, with two rows (the -2^20 row and row 11) near
+    2^61 so the trim's products wrap."""
     if b < N_SPECIAL + 2:
         raise ValueError(f"stage_case needs at least {N_SPECIAL + 2} rows")
     tx_size = tx_size_for(n, log_scale)
@@ -79,14 +79,16 @@ def stage_case(n: int, log_scale: int, b: int, seed: int):
     lam = np.array([md.lam_to_q(rd.rd_lambda(int(q), 8)) for q in qv],
                    np.int64)
     lam[TIE_ROWS] = 0
-    lam[N_SPECIAL + 1] = (1 << 61) + 12345
+    lam[[NEG_BIG_ROW, N_SPECIAL + 1]] = (1 << 61) + 12345
     return coeff.astype(np.int32), qv, lam, scan, tx_size
 
 
 def stage_rows(n: int, log_scale: int, b: int, seed: int):
-    """stage_case's outputs for any b >= 0: the last b rows of a case of
-    at least 37, so that a small b still holds special rows."""
+    """stage_case's outputs for any b >= 0: the first b rows of a case of
+    at least 37, so that a batch holds the first b special rows (from
+    b = 8: all zero, +-2^20, qindex 0 and 255, INT32_MIN, DC only, a
+    wrapping lambda and two zero-lambda tie rows; from b = 12 all of
+    them)."""
     coeff, qv, lam, scan, tx_size = stage_case(n, log_scale, max(b, 37),
                                                seed)
-    rows = slice(len(qv) - b, None)
-    return coeff[rows], qv[rows], lam[rows], scan, tx_size
+    return coeff[:b], qv[:b], lam[:b], scan, tx_size
