@@ -15,17 +15,29 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    (``quantize_qv``) and fused quantize + RDOQ-lite trim + rate
    (``quant_stage_j``) — against its plain PyTorch versions on the card,
    exact, over row lengths, log_scales, plane types, RDOQ on/off and
-   batch sizes, with times beside the bound;
-4. the slice's main path through the user entry point: a 1920x1080 8-bit
-   all-intra stream (preset 5, qp 40) through ``encode_ivf`` on ``cuda``,
-   whose sha256 must equal the JAX package's stream of the same clip
-   (``GOLDEN_*``), whose run must have launched the fused kernel, and in
-   which the plain trim and rate must not have run;
-5. each mode timed at the heaviest shape the main path gave the fused
-   kernel, and one wave of the main path under torch.profiler (device
-   busy share, device operations);
-6. a ``{"kernels": [...]}`` line, the card's line, and last the device
-   line.
+   batch sizes, and at the inter path's largest batches (B = 16320 rows
+   of n = 256 and of n = 64), with times beside the bound;
+4. the first slice's main path through the user entry point: a
+   1920x1080 8-bit all-intra stream (preset 5, qp 40) through
+   ``encode_ivf`` on ``cuda``, whose sha256 must equal the JAX package's
+   stream of the same clip (``GOLDEN_*``), whose run must have launched
+   the fused kernel, and in which the plain trim and rate must not have
+   run;
+5. ``[inter]``, the operating point of ``bench.py``: 9 frames of
+   1920x1080 random access (one key frame, then a mini-GOP of 8 inter
+   frames as a 3-level hierarchical-B pyramid with compound prediction,
+   TMVP and the intra-flip pass; preset 5, qp 40, 4 tile columns)
+   through ``encode_ivf`` on ``cuda``, whose sha256 must equal the JAX
+   package's (``GOLDEN_RA_*``); the fused kernel must have been launched
+   inside the inter frames and the plain trim and rate never; seconds
+   per frame of the key frame and of the inter frames, the stage spans,
+   the flipped blocks, the kernel's launches and shapes inside the inter
+   frames, and the largest shape group under torch.profiler;
+6. each mode timed at the heaviest shape both encodes gave the fused
+   kernel, and one wave of the all-intra path under torch.profiler
+   (device busy share, device operations);
+7. a ``{"kernels": [...]}`` line (launches over both encodes), the
+   card's line, and last the device line.
 
 Needs one CUDA device; without one it exits 2 and prints no result.
 Details (per-shape times, stage spans, ptxas report) go to
@@ -52,6 +64,16 @@ GOLDEN_SHA256 = \
     "ac93b471706ee25d2ea5379faa69b2d76264e7b097da42035ee614b52ecdb8dc"
 GOLDEN_BYTES = 777750
 WIDTH, HEIGHT, FRAMES, QP, PRESET = 1920, 1080, 2, 40, 5
+# the JAX package's stream of bench.py's operating point: encode_ivf(
+# backend="host") on make_clip(1920, 1080, frames=9, seed=3), preset 5,
+# qp 40, intra_period -1, hierarchical_levels 3 (4 tile columns by width)
+GOLDEN_RA_SHA256 = \
+    "3f3f8896fd6341d88d0ab7231ee84b994c93834f2e6a7a808da2e634457e07a4"
+GOLDEN_RA_BYTES = 415319
+RA_FRAMES, RA_LEVELS = 9, 3
+# the inter path's largest quantization-stage batches: the [2B] single-ref
+# pair of 8160 16x16 luma blocks (n = 256) and U+V of their 8x8 chroma
+INTER_BATCHES = ((256, 16320), (64, 16320))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (data sheet)
 INT32_LANES_PER_SM = 64          # Hopper SM: 64 INT32 lanes (128 FP32)
 OUT_DIR = "chiprun_out"
@@ -306,8 +328,8 @@ def _timed(torch, row, mode, c, q, lm, scan, tx, ls, int32_ops,
 def phase_kernels(torch, int32_ops: float) -> list:
     """Every (n, log_scale, B) of the check grid, each kernel mode (the
     fused ones with plane type 0 and 1) against its plain version, exact;
-    each mode timed at B=8 (a typical wave) and B=8160 (a 1080p frame's
-    16x16 blocks)."""
+    each mode timed at B=8 (a typical wave), B=8160 (a 1080p frame's
+    16x16 blocks) and the inter path's B=16320 batches."""
     rows = []
     for n in (16, 64, 256, 1024):
         for ls in (0, 1, 2):
@@ -322,6 +344,16 @@ def phase_kernels(torch, int32_ops: float) -> list:
                         if b in (8, 8160) and pt == 0:
                             _timed(torch, row, mode, *ins, ls, int32_ops)
                         rows.append(row)
+    for n, b in INTER_BATCHES:
+        ins = _stage_inputs(torch, n, 0, b, seed=n + b)
+        for mode in _modes():
+            for pt in ((0,) if mode == "quantize_qv" else (0, 1)):
+                row = _check(torch, mode, *ins, 0, pt)
+                if not row["exact"]:
+                    raise SystemExit(f"{mode} kernel != plain at {row}")
+                if pt == 0:
+                    _timed(torch, row, mode, *ins, 0, int32_ops)
+                rows.append(row)
     for r in rows:
         if "ms" in r:
             print(f"[kernel] {r['mode']} B={r['B']} n={r['n']} "
@@ -337,21 +369,17 @@ def phase_kernels(torch, int32_ops: float) -> list:
     return rows
 
 
-def phase_slice(torch):
-    """Returns (result, {(mode, B, n, log_scale): launches})."""
-    from svt_av1_tpu_torch.app.cli import preset_config
+def _encode_counted(torch, frames, cfg, spies=()):
+    """encode_ivf on the card with the launch counters and spans set to 0
+    just before and read just after; the plain trim and rate are counted
+    too (the fused kernel replaces both on the main path). ``spies``:
+    (object, attribute, wrapper factory) patched in for the run only.
+    Returns (ivf, seconds, launches, shapes, plain calls, spans)."""
     from svt_av1_tpu_torch.ops import device as dev
     from svt_av1_tpu_torch.ops import device_md as tmd
     from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
-    from svt_av1_tpu_torch.utils.clip import make_clip
     from svt_av1_tpu_torch.utils.trace import TRACER
-    frames = make_clip(w=WIDTH, h=HEIGHT, frames=FRAMES, seed=3)
-    cfg = preset_config(width=WIDTH, height=HEIGHT, qp=QP, preset=PRESET,
-                        intra_period=0, device="cuda")
-    # the plain trim and rate are counted while the main path runs: the
-    # fused kernel replaces both there
     plain_calls = collections.Counter()
-    saved = {nm: getattr(tmd, nm) for nm in ("rdoq_trim_j", "_rate_cdf_j")}
 
     def counted(nm, fn):
         def call(*a, **k):
@@ -359,8 +387,11 @@ def phase_slice(torch):
             return fn(*a, **k)
         return call
 
-    for nm, fn in saved.items():
-        setattr(tmd, nm, counted(nm, fn))
+    patches = [(tmd, nm, lambda fn, nm=nm: counted(nm, fn))
+               for nm in ("rdoq_trim_j", "_rate_cdf_j")] + list(spies)
+    saved = [(obj, nm, getattr(obj, nm)) for obj, nm, _ in patches]
+    for (obj, nm, wrap), (_, _, fn) in zip(patches, saved):
+        setattr(obj, nm, wrap(fn))
     TRACER.enabled = True
     TRACER.reset()
     dev.LAUNCHES.clear()
@@ -371,40 +402,189 @@ def phase_slice(torch):
         ivf = encode_ivf(frames, cfg)
         torch.cuda.synchronize()
     finally:
-        for nm, fn in saved.items():
-            setattr(tmd, nm, fn)
+        for obj, nm, fn in saved:
+            setattr(obj, nm, fn)
     dt = time.perf_counter() - t0
-    launches = dict(dev.LAUNCHES)
-    shapes = dict(dev.LAUNCH_SHAPES)
     TRACER.enabled = False
+    return (ivf, dt, dict(dev.LAUNCHES), dict(dev.LAUNCH_SHAPES),
+            dict(plain_calls), TRACER)
+
+
+def _check_stream(what, ivf, sha, golden_bytes, golden_sha) -> None:
+    if sha != golden_sha or len(ivf) != golden_bytes:
+        raise SystemExit(f"{what} stream differs from the JAX golden: "
+                         f"{len(ivf)} bytes sha256 {sha}, want "
+                         f"{golden_bytes} bytes sha256 {golden_sha}")
+
+
+def _shape_keys(shapes) -> dict:
+    return {f"{k[0]} B={k[1]} n={k[2]} ls={k[3]}": v
+            for k, v in sorted(shapes.items())}
+
+
+def phase_slice(torch):
+    """Returns (result, {(mode, B, n, log_scale): launches})."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=WIDTH, h=HEIGHT, frames=FRAMES, seed=3)
+    cfg = preset_config(width=WIDTH, height=HEIGHT, qp=QP, preset=PRESET,
+                        intra_period=0, device="cuda")
+    ivf, dt, launches, shapes, plain_calls, tracer = _encode_counted(
+        torch, frames, cfg)
     sha = hashlib.sha256(ivf).hexdigest()
-    spans = TRACER.summary()
-    keyframes = [s["dur"] for s in TRACER.spans if s["stage"] == "keyframe"]
+    spans = tracer.summary()
+    keyframes = [s["dur"] for s in tracer.spans if s["stage"] == "keyframe"]
     print(f"[slice] {WIDTH}x{HEIGHT} all-intra preset {PRESET} qp {QP}: "
           f"{FRAMES} frames in {dt:.2f} s ({dt / FRAMES:.2f} s/frame), "
           f"{len(ivf)} bytes, sha256 {sha}", flush=True)
     for stage, v in spans.items():
         print(f"[slice] span {stage}: {v['count']} x, {v['total_s']} s",
               flush=True)
-    if sha != GOLDEN_SHA256 or len(ivf) != GOLDEN_BYTES:
-        raise SystemExit(f"stream differs from the JAX golden: {len(ivf)} "
-                         f"bytes sha256 {sha}, want {GOLDEN_BYTES} bytes "
-                         f"sha256 {GOLDEN_SHA256}")
+    _check_stream("all-intra", ivf, sha, GOLDEN_BYTES, GOLDEN_SHA256)
     if launches.get("quant_stage_rdoq", 0) + launches.get("quant_stage",
                                                            0) <= 0:
         raise SystemExit("the main path never launched the fused kernel")
     if plain_calls:
         raise SystemExit(f"the plain trim or rate ran on the main path: "
-                         f"{dict(plain_calls)}")
+                         f"{plain_calls}")
     print(f"[slice] stream equals the JAX golden; launches {launches}; "
           f"plain rdoq_trim_j / _rate_cdf_j calls 0", flush=True)
     return {"seconds": dt, "seconds_per_frame": dt / FRAMES,
             "keyframe_span_s": keyframes, "bytes": len(ivf),
             "sha256": sha, "launches": launches,
-            "plain_trim_rate_calls": dict(plain_calls),
-            "launch_shapes": {f"{k[0]} B={k[1]} n={k[2]} ls={k[3]}": v
-                              for k, v in sorted(shapes.items())},
-            "spans": spans}, shapes
+            "plain_trim_rate_calls": plain_calls,
+            "launch_shapes": _shape_keys(shapes), "spans": spans}, shapes
+
+
+INTER_SPANS = ("inter_partition_dp", "inter_blocks", "intra_flip",
+               "flip_decision", "flip_apply", "tmvp_build", "dlf", "entropy")
+
+
+def phase_inter(torch):
+    """The random-access operating point. Returns (result, {(mode, B, n,
+    log_scale): launches} over the whole encode, the largest shape
+    group's arguments)."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.ops import device_inter as di
+    from svt_av1_tpu_torch.pipeline.inter import InterFrameEncoder
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=WIDTH, h=HEIGHT, frames=RA_FRAMES, seed=3)
+    cfg = preset_config(width=WIDTH, height=HEIGHT, qp=QP, preset=PRESET,
+                        intra_period=-1, hierarchical_levels=RA_LEVELS,
+                        device="cuda")
+    inter_launches = collections.Counter()
+    inter_shapes = collections.Counter()
+    flipped = []
+    biggest = {}
+
+    def compute_spy(fn):
+        """Kernel launches inside each inter frame's compute (the entropy
+        worker launches nothing) and the blocks the flip pass made
+        intra."""
+        def call(self, *a, **k):
+            before = collections.Counter(dev.LAUNCHES)
+            before_s = collections.Counter(dev.LAUNCH_SHAPES)
+            out = fn(self, *a, **k)
+            inter_launches.update(collections.Counter(dev.LAUNCHES) - before)
+            inter_shapes.update(collections.Counter(dev.LAUNCH_SHAPES)
+                                - before_s)
+            flipped.append(int((~self.block_is_inter).sum()))
+            return out
+        return call
+
+    def group_spy(fn):
+        """Keep the arguments of the largest shape group (its recon
+        planes cloned) for the profiled replay."""
+        def call(recon, *a, **k):
+            if len(a[6]) > biggest.get("b", 0):
+                biggest.update(b=len(a[6]), recon=[p.clone() for p in recon],
+                               args=a, kw=k)
+            return fn(recon, *a, **k)
+        return call
+
+    ivf, dt, launches, shapes, plain_calls, tracer = _encode_counted(
+        torch, frames, cfg,
+        spies=((InterFrameEncoder, "encode_compute", compute_spy),
+               (di, "shape_group_issue", group_spy)))
+    sha = hashlib.sha256(ivf).hexdigest()
+    spans = tracer.summary()
+    key_s = sum(s["dur"] for s in tracer.spans if s["stage"] == "keyframe")
+    frame_s = [s["dur"] for s in tracer.spans if s["stage"] == "inter_frame"]
+    n_inter = RA_FRAMES - 1
+    print(f"[inter] {WIDTH}x{HEIGHT} random access hier-{RA_LEVELS} preset "
+          f"{PRESET} qp {QP}: {RA_FRAMES} frames in {dt:.2f} s "
+          f"({dt / RA_FRAMES:.2f} s/frame), {len(ivf)} bytes, sha256 {sha}",
+          flush=True)
+    print(f"[inter] key frame {key_s:.2f} s (its compute); inter frames "
+          f"{(dt - key_s) / n_inter:.3f} s/frame (wall after the key "
+          f"frame's compute, entropy drained, / {n_inter}); inter compute "
+          f"{sum(frame_s) / n_inter:.3f} s/frame (span inter_frame)",
+          flush=True)
+    for stage in INTER_SPANS:
+        v = spans.get(stage, {"count": 0, "total_s": 0.0})
+        print(f"[inter] span {stage}: {v['count']} x, {v['total_s']} s",
+              flush=True)
+    print(f"[inter] intra blocks placed by the flip pass: {sum(flipped)} "
+          f"({flipped} per inter frame)", flush=True)
+    print(f"[inter] kernel launches inside the inter frames: "
+          f"{dict(inter_launches)}; shapes {_shape_keys(inter_shapes)}",
+          flush=True)
+    _check_stream("random-access", ivf, sha, GOLDEN_RA_BYTES,
+                  GOLDEN_RA_SHA256)
+    if inter_launches.get("quant_stage_rdoq", 0) \
+            + inter_launches.get("quant_stage", 0) <= 0:
+        raise SystemExit("the inter frames never launched the fused kernel")
+    if plain_calls:
+        raise SystemExit(f"the plain trim or rate ran on the main path: "
+                         f"{plain_calls}")
+    print(f"[inter] stream equals the JAX golden; plain rdoq_trim_j / "
+          f"_rate_cdf_j calls 0", flush=True)
+    return {"seconds": dt, "seconds_per_frame": dt / RA_FRAMES,
+            "keyframe_compute_s": key_s,
+            "inter_s_per_frame": (dt - key_s) / n_inter,
+            "inter_compute_s_per_frame": sum(frame_s) / n_inter,
+            "inter_frame_span_s": frame_s, "bytes": len(ivf),
+            "sha256": sha, "launches": launches,
+            "inter_launches": dict(inter_launches),
+            "inter_launch_shapes": _shape_keys(inter_shapes),
+            "flipped_blocks": flipped,
+            "plain_trim_rate_calls": plain_calls,
+            "spans": spans}, shapes, biggest
+
+
+def phase_group_profile(torch, biggest) -> dict:
+    """The main path's largest shape group replayed once under
+    torch.profiler: device operations, device busy ms, wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from svt_av1_tpu_torch.ops import device_inter as di
+
+    def run():
+        recon = [p.clone() for p in biggest["recon"]]
+        di.shape_group_issue(recon, *biggest["args"], **biggest["kw"])
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    size = biggest["args"][8]
+    res = {"B": biggest["b"], "size": size, "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy_us / 1e3, "device_ops": len(dev_events),
+           "device_busy_share": busy_us / wall_us if busy_us else None}
+    share = "not measured" if res["device_busy_share"] is None \
+        else f"{100 * res['device_busy_share']:.2f}%"
+    print(f"[inter-profile] shape group {size}, B={res['B']}: wall "
+          f"{res['wall_ms']:.2f} ms, device busy {res['device_busy_ms']:.3f}"
+          f" ms ({share}), {res['device_ops']} device ops", flush=True)
+    return res
 
 
 def phase_profile(torch, np) -> dict:
@@ -462,9 +642,9 @@ def phase_profile(torch, np) -> dict:
 
 def kernel_entries(torch, launches, shapes, int32_ops) -> list:
     """The kernels line: the kernel in each mode, timed at the heaviest
-    shape (B * n) that the main path gave that mode — the quantize-only
-    mode, which the main path does not launch, at the heaviest fused
-    shape — against its plain version."""
+    shape (B * n) that the main path's two encodes gave that mode — the
+    quantize-only mode, which the main path does not launch, at the
+    heaviest fused shape — against its plain version."""
     replaces = "svt_av1_tpu/ops/device.py:728 quantize_pallas " \
         "(quantize_qv contract, device.py:250)"
     fused = replaces + "; fused with _rate_cdf_j " \
@@ -514,13 +694,20 @@ def main() -> int:
     build = phase_build()
     grid = phase_kernels(torch, env["int32_ops_per_s"])
     slice_res, shapes = phase_slice(torch)
-    kernels = kernel_entries(torch, slice_res["launches"], shapes,
+    inter_res, inter_shapes, biggest = phase_inter(torch)
+    launches = collections.Counter(slice_res["launches"])
+    launches.update(inter_res["launches"])
+    shapes = collections.Counter(shapes)
+    shapes.update(inter_shapes)
+    kernels = kernel_entries(torch, launches, shapes,
                              env["int32_ops_per_s"])
+    group_prof = phase_group_profile(torch, biggest)
     prof = phase_profile(torch, np)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"env": env, "build": build, "kernel_grid": grid,
-                   "slice": slice_res, "kernels": kernels,
+                   "slice": slice_res, "inter": inter_res,
+                   "kernels": kernels, "shape_group_profile": group_prof,
                    "wave_profile": prof}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])

@@ -8,8 +8,10 @@ takes the place of ``backend``. Entry points run on that device; a
 ``"cuda"`` config on a machine without a card raises instead of falling
 back to the CPU.
 
-The port covers all-intra streams so far. ``__post_init__`` raises
-``NotImplementedError`` for every tool that a later slice brings.
+The port covers all-intra streams and the fused inter path (low-delay P
+and hierarchical-B random access, with compound prediction, TMVP and the
+intra-flip pass). ``__post_init__`` raises ``NotImplementedError`` for
+every tool that a later slice brings.
 """
 
 from __future__ import annotations
@@ -216,10 +218,13 @@ class EncoderConfig:
 def _reject_later_slices(cfg: EncoderConfig) -> None:
     """Raise NotImplementedError for a tool the port does not run yet."""
     from svt_av1_tpu_torch.pipeline.common import edge_filter_active
+    inter = cfg.intra_period != 0 or cfg.hierarchical_levels > 0
     later = [
-        (cfg.intra_period != 0 or cfg.hierarchical_levels > 0,
-         "inter frames (intra_period != 0 or hierarchical_levels > 0)",
-         "the inter slice"),
+        (inter and cfg.enable_tx_type_search,
+         "the tx-type search of inter frames", "the non-fused inter slice"),
+        (inter and cfg.enable_interp_filter_search,
+         "the interpolation-filter search of inter frames",
+         "the non-fused inter slice"),
         (cfg.enable_cdef, "CDEF", "the CDEF slice"),
         (cfg.enable_restoration, "loop restoration", "the LR slice"),
         (cfg.adaptive_quantization != 0, "adaptive quantization",

@@ -486,6 +486,99 @@ def predict_modes(modes: tuple, above, left, top_left, have_above, have_left,
     return torch.stack(preds, dim=0)
 
 
+# --- gathers with the JAX index rule -----------------------------------------------
+def jax_index(idx, n: int):
+    """An index tensor under the rule of a JAX gather: a negative index
+    counts from the end, then every index is clamped into [0, n). torch
+    raises (CPU) or faults (CUDA) where JAX reads a clamped element, so
+    every gather whose indices the data choose goes through this."""
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+def take2(plane, iy, ix):
+    """plane[iy, ix] of a [H, W] tensor with the JAX gather rule."""
+    h, w = plane.shape[-2:]
+    return plane[jax_index(iy, h), jax_index(ix, w)]
+
+
+# --- motion compensation -----------------------------------------------------------
+# (8/4-tap sub-pel convolve batched over blocks with data-dependent MVs;
+# host oracle ops/mc.mc_block_batch. Windows are gathered per block from
+# the padded reference; filter rows are gathered by sub-pel phase.)
+
+@functools.lru_cache(maxsize=64)
+def mc_filters(dim: int, device: torch.device, dtype=torch.int32):
+    """The [16, 8] phase table of one block dimension (regular filter)."""
+    from svt_av1_tpu_torch.ops import mc as mch
+    return const(mch._filters(dim), device, dtype)
+
+
+def mc_window(ref_padded, xs, ys, mvs, w: int, h: int, ss: int,
+              ref_idx=None, flat: bool = True):
+    """The (h+7, w+7) filter windows [B, h+7, w+7] (ref dtype) and the
+    sub-pel phases (frac_r, frac_c) [B] of a batch of MC blocks, gathered
+    with the JAX gather rule from the flattened (stacked, with
+    ``ref_idx``) padded reference, or, with ``flat`` False and no bank,
+    by row and column as a 2-D gather. The two clamp differently out of
+    range, and each follows its JAX twin: mc_block_batch_j gathers flat,
+    mc_block_batch_conv_j by row and column."""
+    from svt_av1_tpu_torch.ops import mc as mch
+    b = xs.shape[0]
+    mvs = mvs.long()
+    scaled_r = mvs[:, 0] << (1 - ss)
+    scaled_c = mvs[:, 1] << (1 - ss)
+    int_r = ys.long() + (scaled_r >> 4)
+    int_c = xs.long() + (scaled_c >> 4)
+    wp = ref_padded.shape[-1]
+    y0 = int_r + mch.REF_PAD - 3
+    x0 = int_c + mch.REF_PAD - 3
+    dev_ = ref_padded.device
+    iy = y0[:, None, None] + torch.arange(h + 7, device=dev_)[None, :, None]
+    ix = x0[:, None, None] + torch.arange(w + 7, device=dev_)[None, None, :]
+    if not flat and ref_idx is None:
+        return take2(ref_padded, iy, ix), scaled_r & 15, scaled_c & 15
+    idx = iy * wp + ix
+    if ref_idx is not None:
+        plane_sz = ref_padded.shape[-1] * ref_padded.shape[-2]
+        idx = idx + (ref_idx.long() * plane_sz)[:, None, None]
+    bank = ref_padded.reshape(-1)
+    win = bank[jax_index(idx.reshape(b, -1), bank.numel())]
+    return win.reshape(b, h + 7, w + 7), scaled_r & 15, scaled_c & 15
+
+
+def mc_block_batch_j(ref_padded, xs, ys, mvs, w: int, h: int,
+                     ss: int = 0, bd: int = 8, ref_idx=None):
+    """Twin of the JAX ``mc_block_batch_j`` (mc.mc_block_batch): [B]
+    blocks, [B, 2] MVs in 1/8-pel luma units. Returns [B, h, w] pixels
+    (int32). ``ref_idx``: optional [B] plane selector when ``ref_padded``
+    is a stacked [R, H, W] bank (per-block reference choice in one
+    gather). int32 arithmetic, as the JAX twin's."""
+    from svt_av1_tpu_torch.ops import mc as mch
+    b = xs.shape[0]
+    win, frac_r, frac_c = mc_window(ref_padded, xs, ys, mvs, w, h, ss,
+                                    ref_idx)
+    win = win.to(torch.int32)
+    fx = mc_filters(w, win.device)[frac_c]                 # [B, 8]
+    fy = mc_filters(h, win.device)[frac_r]
+    offset_bits = bd + 2 * mch.FILTER_BITS - mch.ROUND0
+    final_bits = 2 * mch.FILTER_BITS - mch.ROUND0 - mch.ROUND1
+    sub = (1 << (offset_bits - mch.ROUND1)) \
+        + (1 << (offset_bits - mch.ROUND1 - 1))
+    horiz = torch.full((b, h + 7, w), 1 << (bd + mch.FILTER_BITS - 1),
+                       dtype=torch.int32, device=win.device)
+    for k in range(8):
+        horiz = horiz + fx[:, k, None, None] * win[:, :, k:k + w]
+    horiz = (horiz + (1 << (mch.ROUND0 - 1))) >> mch.ROUND0
+    vert = torch.full((b, h, w), 1 << offset_bits, dtype=torch.int32,
+                      device=win.device)
+    for k in range(8):
+        vert = vert + fy[:, k, None, None] * horiz[:, k:k + h]
+    res = ((vert + (1 << (mch.ROUND1 - 1))) >> mch.ROUND1) - sub
+    if final_bits > 0:
+        res = (res + (1 << (final_bits - 1))) >> final_bits
+    return res.clamp(0, (1 << bd) - 1)
+
+
 # --- DLF -----------------------------------------------------------------------
 # (the 4/6/8/14-tap edge filters over batched sample lines [N, 14];
 # host oracle ops/dlf._apply_len. Adjacent same-direction edges never
@@ -742,9 +835,10 @@ def dlf_search_apply_dev(recon_planes, src_planes, leaf_sizes, mi_rows,
                          mi_cols, qindex: int, bd: int = 8,
                          device="cuda"):
     """Deblocking level search + apply on ``device`` (host pick_levels +
-    loop_filter_frame twin). Writes the filtered planes into the numpy
-    ``recon_planes`` in place; returns the (y, y, u, v) levels —
-    identical integers to the host pair by construction."""
+    loop_filter_frame twin). Writes the filtered planes into
+    ``recon_planes`` in place (numpy planes, or tensors on ``device``,
+    which stay there); returns the (y, y, u, v) levels — identical
+    integers to the host pair by construction."""
     from svt_av1_tpu_torch.ops import dlf
     g = dlf.level_guess(qindex, bd)
     cl = sorted({0, max(0, g // 2), g, min(63, (3 * g) // 2)})
@@ -758,7 +852,8 @@ def dlf_search_apply_dev(recon_planes, src_planes, leaf_sizes, mi_rows,
                 const(sx, device), const(sy, device))
 
     def planes(ps):
-        return [const(np.asarray(p).astype(np.int32), device).to(pdt)
+        return [p.to(pdt) if isinstance(p, torch.Tensor)
+                else const(np.asarray(p).astype(np.int32), device).to(pdt)
                 for p in ps]
 
     eff = ((mi_cols * 4, mi_rows * 4), (mi_cols * 2, mi_rows * 2))
@@ -766,7 +861,10 @@ def dlf_search_apply_dev(recon_planes, src_planes, leaf_sizes, mi_rows,
     oy, ou, ov, ly, luv = fn(*planes(recon_planes), *planes(src_planes),
                              maps(0), maps(1), const(cands, device))
     for dst, t in zip(recon_planes, (oy, ou, ov)):
-        dst[...] = t.cpu().numpy().astype(dst.dtype)
+        if isinstance(dst, torch.Tensor):
+            dst.copy_(t)
+        else:
+            dst[...] = t.cpu().numpy().astype(dst.dtype)
     ly, luv = int(ly), int(luv)
     if ly == 0:
         return (0, 0, 0, 0)

@@ -338,25 +338,37 @@ def chroma_tx_type_inter(luma_tt: int, tx_size: int,
 
 
 class PendingQC:
-    """Device-resident coefficient group awaiting its one batched fetch.
+    """Device-resident coefficient group awaiting its one fetch.
 
     ``qcoeff[p][i] = (PendingQC, lane)`` markers defer the ~MBs of
-    quantized coefficients until the syntax pass (which runs on the
-    entropy worker thread, overlapped with the next frame's device
-    compute). The copy was already started with copy_to_host_async at
-    dispatch time, so resolving is usually a wait, not a transfer."""
+    quantized coefficients (a torch tensor) until the syntax pass, which
+    runs on the entropy worker thread, overlapped with the next frame's
+    device compute. On a CUDA tensor the copy into pinned host memory
+    starts at construction (the dispatch), behind the work that produces
+    it, so resolving is usually a wait, not a transfer."""
 
-    __slots__ = ("dev", "host")
+    __slots__ = ("dev", "host", "_done")
 
     def __init__(self, dev):
-        self.dev = dev
         self.host = None
+        self._done = None
+        if dev.is_cuda:
+            import torch
+            pinned = torch.empty(dev.shape, dtype=dev.dtype,
+                                 pin_memory=True)
+            pinned.copy_(dev, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
+            dev = pinned
+        self.dev = dev
 
     def get(self, lane: int):
         import numpy as _np
         if self.host is None:
-            self.host = _np.asarray(self.dev)
-            self.dev = None
+            if self._done is not None:
+                self._done.synchronize()
+            self.host = self.dev.cpu().numpy()
+            self.dev = self._done = None
         return self.host[lane].astype(_np.int32)
 
 

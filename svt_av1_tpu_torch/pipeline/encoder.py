@@ -1,12 +1,18 @@
-"""Top-level encoder of the port: streaming API over all-intra streams.
+"""Top-level encoder of the port: GOP structure, reference management and
+the streaming API.
 
-The port of the JAX package's ``pipeline/encoder.py`` for key frames: the
-reference's public lifecycle (``EbApi.h:505-592``: init → send_picture →
-get_packet → flush) with CQP qp-scaling of key frames, the reference-slot
-bookkeeping a later inter slice reads, and the ordered entropy worker:
-each key frame's host entropy runs on one worker thread while the next
-frame computes on the device, in submission order, so the bytes equal a
-serial run's.
+The port of the JAX package's ``pipeline/encoder.py``: the reference's
+public lifecycle (``EbApi.h:505-592``: init → send_picture → get_packet →
+flush) and its PictureDecision mini-GOP assembly
+(``EbPictureDecisionProcess.c:816``). Frames arrive in display order; with
+``hierarchical_levels`` > 0 they are re-ordered into a hierarchical-B
+pyramid (anchor coded first, not shown; middles reference past and future
+anchors; display via show_existing_frame), otherwise a low-delay KEY + P
+chain. CQP qp-scaling sets each frame's quantizer by temporal layer.
+
+Host entropy runs on one ordered worker thread while the next frames
+compute on the device: jobs run in submission order, so the CDF-carry
+chain, and the bytes, equal a serial run's.
 """
 
 from __future__ import annotations
@@ -19,11 +25,15 @@ from typing import Iterable, List
 import numpy as np
 import torch
 
+from svt_av1_tpu_torch.bitstream import obu
 from svt_av1_tpu_torch.bitstream.ivf import (patch_ivf_frame_count,
                                              write_ivf_frame,
                                              write_ivf_header)
 from svt_av1_tpu_torch.config import EncoderConfig
+from svt_av1_tpu_torch.entropy.inter_modes import (ALTREF2_FRAME,
+                                                   GOLDEN_FRAME, LAST2_FRAME)
 from svt_av1_tpu_torch.pipeline import tmvp
+from svt_av1_tpu_torch.pipeline.inter import InterFrameEncoder
 from svt_av1_tpu_torch.pipeline.scd import SceneChangeDetector
 from svt_av1_tpu_torch.pipeline.wavefront import WavefrontIntraEncoder
 from svt_av1_tpu_torch.utils.trace import span
@@ -43,44 +53,82 @@ def check_device(device: str) -> torch.device:
 class Encoder:
     """Streaming encoder: send_picture / get_packet semantics.
 
-    get_packet returns (tu_bytes, display_recon)."""
+    get_packet returns (tu_bytes, display_recon_or_None): a None recon
+    means the TU coded a non-shown frame (its display arrives later via a
+    show_existing TU)."""
 
-    # CQP qp-scaling: key frames target 0.25x the nominal quantizer step
-    # (the reference's delta_rate_new, EbRateControlProcess.c:1129)
+    # CQP qp-scaling quantizer-step ratios per temporal layer (the
+    # reference's delta_rate_new, EbRateControlProcess.c:1143; key
+    # frames target 0.25x the nominal step, EbRateControlProcess.c:1129)
     QPS_KEY_RATIO = 0.25
+    QPS_LAYER_RATIO = (0.40, 0.7, 0.85, 1.0, 1.0, 1.0)
+
+    # how many frames of host entropy may trail the compute front (CQP
+    # qindex choices do not depend on coded bits, so the bound is memory:
+    # each in-flight frame holds its coefficient copies)
+    SYNTAX_DEPTH = 4
 
     def __init__(self, cfg: EncoderConfig):
+        assert cfg.hierarchical_levels <= 5, \
+            "pyramid depth capped at 5 (reference MAX_HIERARCHICAL_LEVELS)"
         check_device(cfg.device)
         self.cfg = cfg
-        self._slots = [None] * 8   # padded recon per slot
+        self.seq = obu.SequenceHeader(width=cfg.width, height=cfg.height,
+                                      bit_depth=cfg.bit_depth,
+                                      enable_cdef=cfg.enable_cdef,
+                                      enable_restoration=cfg.enable_restoration,
+                                      enable_intra_edge_filter=(
+                                          cfg.enable_intra_edge_filter),
+                                      film_grain_params_present=False,
+                                      color_primaries=cfg.color_primaries,
+                                      transfer_characteristics=(
+                                          cfg.transfer_characteristics),
+                                      matrix_coefficients=(
+                                          cfg.matrix_coefficients),
+                                      color_range=cfg.color_range,
+                                      **obu.order_hint_fields(
+                                          cfg.enable_tmvp))
+        self._slots = [None] * 8   # padded recon per slot (host or device)
+        # the slots' prepared references (padding + HME pyramid), shared
+        # by every inter frame of the stream
+        self._ref_cache = {}
         # per-slot saved entropy state (FrameContext, NmvContext) and gm
-        # params — the decoder-side SavedCdfs/SavedGmParams stores
-        # (spec 6.8.2)
+        # params — the decoder-side SavedCdfs/SavedGmParams stores that
+        # primary_ref_frame CDF carry reads from (spec 6.8.2)
         self._slot_entropy = [None] * 8
         self._slot_gm = [((0, 0),) * 7] * 8
-        # per-slot TMVP facts — the encoder-side mirror of the decoder's
+        # per-slot TMVP facts (order hint, that frame's ref hints, its
+        # 8x8 motion field) — the encoder-side mirror of the decoder's
         # slot_info store
         self._slot_info = [None] * 8
-        # host entropy runs on this single worker; jobs run in submission
-        # order, so the CDF-carry chain is identical to serial execution
         self._syntax_pool = None
         self._syntax_pending: List = []
+        self._base_slot = 0        # slot of the most recent past anchor
+        self._golden_slot = 7      # slot of the last keyframe (GOLDEN)
+        self._ld_last2 = None      # low-delay: slot of the frame before LAST
         self._frame_idx = 0        # display-order index of next input
         self._key_disp = 0         # display index of the last keyframe
-        self._out: List = []       # [(future, recon)]
+        self._group: List[tuple] = []
+        self._out: List = []       # [(bytes or future, recon or None)]
         self._scd = SceneChangeDetector() \
             if cfg.scene_change_detection else None
 
-    def _cfg_for_key(self) -> EncoderConfig:
+    # --- internals -----------------------------------------------------------
+    def _cfg_for(self, is_key: bool, layer: int = 0) -> EncoderConfig:
         cfg = self.cfg
         if cfg.enable_qp_scaling and cfg.qindex_override is None:
             from svt_av1_tpu_torch.ops.quant import qindex_for_qstep_scale
-            cfg = dataclasses.replace(
-                cfg, qindex_override=qindex_for_qstep_scale(
-                    cfg.base_q_idx, self.QPS_KEY_RATIO, cfg.bit_depth))
+            ratio = self.QPS_KEY_RATIO if is_key else \
+                self.QPS_LAYER_RATIO[min(layer,
+                                         len(self.QPS_LAYER_RATIO) - 1)]
+            if ratio < 1.0:
+                cfg = dataclasses.replace(
+                    cfg, qindex_override=qindex_for_qstep_scale(
+                        cfg.base_q_idx, ratio, cfg.bit_depth))
         if cfg.qindex_override is not None and (
                 cfg.min_qp_allowed > 0 or cfg.max_qp_allowed < 63):
-            # reference min_qp_allowed/max_qp_allowed clamps
+            # reference min_qp_allowed/max_qp_allowed clamps (CLIP3 at
+            # every per-frame qp assignment, EbRateControlProcess.c)
             cfg = dataclasses.replace(cfg, qindex_override=int(np.clip(
                 cfg.qindex_override, max(1, cfg.min_qp_allowed * 4),
                 cfg.max_qp_allowed * 4)))
@@ -91,9 +139,28 @@ class Encoder:
         (reference --use-q-file semantics: value replaces the frame qp,
         -1/absent keeps it)."""
         qf = self.cfg.qp_file
-        if qf is None or disp_idx >= len(qf) or qf[disp_idx] < 0:
+        if (qf is None or disp_idx is None or disp_idx >= len(qf)
+                or qf[disp_idx] < 0):
             return None
         return int(qf[disp_idx])
+
+    def _crop(self, padded):
+        cfg = self.cfg
+        return [padded[0][:cfg.height, :cfg.width],
+                padded[1][:(cfg.height + 1) // 2, :(cfg.width + 1) // 2],
+                padded[2][:(cfg.height + 1) // 2, :(cfg.width + 1) // 2]]
+
+    def _submit(self, job):
+        """Queue a syntax job on the ordered entropy worker; keep at most
+        SYNTAX_DEPTH jobs in flight."""
+        if self._syntax_pool is None:
+            self._syntax_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="entropy")
+        fut = self._syntax_pool.submit(job)
+        self._syntax_pending.append(fut)
+        while len(self._syntax_pending) > self.SYNTAX_DEPTH:
+            self._syntax_pending.pop(0).result()
+        return fut
 
     def _join_syntax(self) -> None:
         """Wait for all in-flight entropy jobs (in submission order)."""
@@ -102,7 +169,7 @@ class Encoder:
 
     def _encode_key(self, y, u, v, disp_idx: int) -> None:
         self._join_syntax()
-        cfg = self._cfg_for_key()
+        cfg = self._cfg_for(True)
         qv = self._qp_file_qp(disp_idx)
         if qv is not None:
             cfg = dataclasses.replace(cfg, qp=qv, qindex_override=None)
@@ -117,9 +184,12 @@ class Encoder:
             self._slot_gm[i] = ((0, 0),) * 7
             self._slot_info[i] = tmvp.SlotInfo(order_hint=hint,
                                                is_intra=True)
+        self._base_slot = 0
+        self._golden_slot = 7
+        self._ld_last2 = None
 
         # keyframe host entropy runs on the ordered syntax worker while
-        # the next frame computes. The slot entropy stores are written
+        # the next frames compute. The slot entropy stores are written
         # inside the job; only later syntax jobs read them, and the
         # single worker serializes those after this one.
         def key_syntax_job(enc=enc):
@@ -128,26 +198,220 @@ class Encoder:
                 self._slot_entropy[i] = enc.final_entropy
             return tu
 
-        if self._syntax_pool is None:
-            self._syntax_pool = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="entropy")
-        fut = self._syntax_pool.submit(key_syntax_job)
-        self._syntax_pending.append(fut)
-        self._out.append((fut, recon))
+        self._out.append((self._submit(key_syntax_job), recon))
 
+    def _encode_inter(self, y, u, v, last_slot, alt_slot, refresh_slot,
+                      show, layer: int = 0, extra_slots=None,
+                      disp_idx=None) -> list:
+        """Encode one inter frame; returns its padded recon (on the
+        device). refresh_slot None = non-reference frame
+        (refresh_frame_flags 0, the leaf-B case of the hierarchical
+        pyramid). layer: temporal layer (pyramid level; 0 = anchor/P),
+        which sets the qp-scaling step (or, with qp scaling off, a fixed
+        +12 qindex per layer). extra_slots: {ref_id: slot} additional
+        named references; a slot whose content is the same object as an
+        already-chosen ref is dropped."""
+        cfg = self._cfg_for(False, layer)
+        if layer and not self.cfg.enable_qp_scaling:
+            cfg = dataclasses.replace(
+                cfg, qindex_override=int(np.clip(
+                    cfg.base_q_idx + 12 * layer, 1, 255)))
+        qv = self._qp_file_qp(disp_idx)
+        if qv is not None:   # qp-file pins the frame qp exactly
+            cfg = dataclasses.replace(cfg, qp=qv, qindex_override=None)
+        enc = InterFrameEncoder(cfg, self.seq, self._ref_cache)
+        idx = [last_slot] * 7
+        alt = None
+        used = [self._slots[last_slot]]
+        if alt_slot is not None:
+            idx[6] = alt_slot
+            alt = self._slots[alt_slot]
+            used.append(alt)
+        extra = {}
+        for rid, slot in (extra_slots or {}).items():
+            if slot is None:
+                continue
+            planes = self._slots[slot]
+            if planes is None or any(planes is u_ for u_ in used):
+                continue
+            idx[rid - 1] = slot
+            extra[rid] = planes
+            used.append(planes)
+        rff = 0 if refresh_slot is None else 1 << refresh_slot
+        # temporal MV context: current hint, per-slot hints, projected
+        # field from the slot stores (the decoder rebuilds the same from
+        # its own slots — spec 7.9). Slot TMVP/gm stores are refreshed on
+        # this thread right after each frame's compute, so no in-flight
+        # syntax job is ever waited on here.
+        hint = ((disp_idx or 0) - self._key_disp) & 127
+        bits = self.seq.order_hint_bits
+        slot_hints = tuple(si.order_hint if si is not None else 0
+                           for si in self._slot_info)
+        named_hints = [slot_hints[idx[r - 1]] for r in range(1, 8)]
+        rel_dist = [0] * 8       # dist(cur, ref) per named ref
+        sign_bias = [0] * 8
+        for r in range(1, 8):
+            rel_dist[r] = obu.get_relative_dist(hint, named_hints[r - 1],
+                                                bits)
+            sign_bias[r] = int(obu.get_relative_dist(named_hints[r - 1],
+                                                     hint, bits) > 0)
+        use_tmvp = (self.seq.enable_ref_frame_mvs
+                    and not cfg.error_resilient)
+        tpl = None
+        if use_tmvp:
+            with span("tmvp_build"):
+                tpl = tmvp.build_tpl_field(self.seq.mi_rows,
+                                           self.seq.mi_cols, hint, idx,
+                                           self._slot_info, bits)
+        with span("inter_frame"):
+            enc.tmvp_ctx = dict(order_hint=hint,
+                                ref_order_hints=slot_hints,
+                                use=use_tmvp, tpl=tpl,
+                                rel_dist=rel_dist, sign_bias=sign_bias)
+            padded = enc.encode_compute(
+                y, u, v, self._slots[last_slot], alt_planes=alt,
+                refresh_frame_flags=rff, ref_frame_idx=idx,
+                show_frame=show, extra_refs=extra)
+        if refresh_slot is not None:
+            # every slot store a LATER frame's compute may read is
+            # refreshed here, straight from the decisions — syntax owns
+            # only the entropy store (read exclusively by later syntax
+            # jobs, which the single ordered worker runs after this one)
+            self._slots[refresh_slot] = padded
+            self._slot_gm[refresh_slot] = tuple(
+                enc.gm_mv.get(ref, (0, 0)) for ref in range(1, 8))
+            fr, fm = tmvp.save_motion_field(
+                tmvp.field_state_from_decisions(enc),
+                [-d for d in rel_dist])
+            self._slot_info[refresh_slot] = tmvp.SlotInfo(
+                order_hint=hint,
+                ref_order_hints=tuple(named_hints),
+                is_intra=False, field_ref=fr, field_mv=fm)
+        # gm prediction base for the frame header: captured now — a later
+        # frame may refresh this slot's gm store before the worker runs
+        # this frame's job
+        prev_gm_val = self._slot_gm[last_slot]
+
+        def syntax_job(enc=enc, last=last_slot, refresh=refresh_slot,
+                       prev_gm=prev_gm_val):
+            tu = enc.encode_syntax(self._slot_entropy[last], prev_gm)
+            if refresh is not None:
+                self._slot_entropy[refresh] = enc.final_entropy
+            return tu
+
+        self._out.append((self._submit(syntax_job),
+                          self._crop(padded) if show else None))
+        return padded
+
+    def _flush_group(self) -> None:
+        """Encode the buffered mini-GOP as a hierarchical pyramid with
+        interleaved display (decode order = the reference RA pattern:
+        anchor first, then an in-order traversal where leaf Bs are coded
+        shown with refresh_frame_flags 0 and interior Bs surface later
+        via show_existing_frame)."""
+        group = self._group
+        self._group = []
+        if not group:
+            return
+        g = len(group)
+        base = self._base_slot
+        anchor_slot = 1 if base != 1 else 2
+        golden = self._golden_slot
+        free = [s for s in range(8)
+                if s not in (base, anchor_slot, golden)]
+        adi, ay, au, av = group[-1]
+        # multi-ref lists (Av1GenerateRpsInfo analogue): every frame also
+        # sees the GOP's base anchor (GOLDEN, long-term past) and the
+        # GOP-end anchor (ALTREF2, far future) beyond its nearest pair
+        self._encode_inter(ay, au, av, base, None, anchor_slot,
+                           show=(g == 1),
+                           extra_slots={GOLDEN_FRAME: golden},
+                           disp_idx=adi)
+
+        def rec(lo_idx, hi_idx, lo_slot, hi_slot, level):
+            """Code + display frames lo_idx+1 .. hi_idx-1 in display
+            order; slots are released once a subtree is displayed."""
+            if hi_idx - lo_idx <= 1:
+                return
+            extra = {GOLDEN_FRAME: base if lo_slot != base else golden,
+                     ALTREF2_FRAME: anchor_slot}
+            mid = (lo_idx + hi_idx) // 2
+            mdi, my, mu, mv_ = group[mid]
+            if hi_idx - lo_idx == 2:
+                # leaf B: nothing references it -> code it shown directly
+                self._encode_inter(my, mu, mv_, lo_slot, hi_slot, None,
+                                   show=True, layer=level,
+                                   extra_slots=extra, disp_idx=mdi)
+                return
+            s = free.pop(0)
+            self._encode_inter(my, mu, mv_, lo_slot, hi_slot, s,
+                               show=False, layer=level,
+                               extra_slots=extra, disp_idx=mdi)
+            rec(lo_idx, mid, lo_slot, s, level + 1)
+            self._out.append((obu.show_existing_frame_tu(s),
+                              self._crop(self._slots[s])))
+            rec(mid, hi_idx, s, hi_slot, level + 1)
+            free.append(s)
+
+        rec(-1, g - 1, base, anchor_slot, 1)
+        if g > 1:
+            self._out.append((obu.show_existing_frame_tu(anchor_slot),
+                              self._crop(self._slots[anchor_slot])))
+        self._base_slot = anchor_slot
+
+    def _is_key(self, idx: int) -> bool:
+        period = self.cfg.intra_period
+        if idx == 0:
+            return True
+        if period < 0:
+            return False
+        if period == 0:
+            return True
+        return idx % (period + 1) == 0
+
+    def _encode_one(self, y, u, v) -> None:
+        cfg = self.cfg
+        is_key = self._is_key(self._frame_idx)
+        if self._scd is not None and self._scd.is_scene_change(y):
+            is_key = True  # CRA/IDR on detected scene cut
+        self._frame_idx += 1
+        disp = self._frame_idx - 1
+        if cfg.hierarchical_levels == 0:
+            if is_key:
+                self._encode_key(y, u, v, disp_idx=disp)
+            else:
+                # low-delay P: LAST/LAST2 rotate through slots 0 and 1,
+                # GOLDEN pins the last keyframe (slot 7) — the reference's
+                # LDP ref list (Av1GenerateRpsInfo low-delay branch)
+                prev = self._base_slot
+                refresh = 1 - prev if prev in (0, 1) else 0
+                extra = {GOLDEN_FRAME: self._golden_slot}
+                if self._ld_last2 is not None:
+                    extra[LAST2_FRAME] = self._ld_last2
+                self._encode_inter(y, u, v, prev, None, refresh,
+                                   show=True, extra_slots=extra,
+                                   disp_idx=disp)
+                self._ld_last2 = prev
+                self._base_slot = refresh
+            return
+        if is_key:
+            self._flush_group()
+            self._encode_key(y, u, v, disp_idx=disp)
+            return
+        self._group.append((disp, y, u, v))
+        if len(self._group) == (1 << cfg.hierarchical_levels):
+            self._flush_group()
+
+    # --- public ---------------------------------------------------------------
     def send_picture(self, y: np.ndarray, u: np.ndarray,
                      v: np.ndarray) -> None:
-        """Accept one frame (display order). Every frame of an all-intra
-        stream is a key frame; scene-change detection still tracks each
-        frame, as in the JAX package."""
-        if self._scd is not None:
-            self._scd.is_scene_change(y)
-        disp = self._frame_idx
-        self._frame_idx += 1
-        self._encode_key(y, u, v, disp_idx=disp)
+        """Accept one frame (display order)."""
+        self._encode_one(y, u, v)
 
     def flush(self) -> None:
-        """End of stream: wait for the entropy worker, then stop it."""
+        """End of stream: encode any buffered frames, wait for the
+        entropy worker, then stop it."""
+        self._flush_group()
         self._join_syntax()
         if self._syntax_pool is not None:
             self._syntax_pool.shutdown()
@@ -156,8 +420,13 @@ class Encoder:
     def get_packet(self):
         if not self._out:
             return None
-        fut, recon = self._out.pop(0)
-        return fut.result(), recon
+        tu, recon = self._out.pop(0)
+        if not isinstance(tu, bytes):   # pending entropy job
+            tu = tu.result()
+        if recon is not None:
+            recon = [p.cpu().numpy() if isinstance(p, torch.Tensor) else p
+                     for p in recon]
+        return tu, recon
 
 
 def encode_ivf(frames: Iterable[tuple], cfg: EncoderConfig) -> bytes:

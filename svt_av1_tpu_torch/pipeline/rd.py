@@ -295,3 +295,139 @@ def choose_partition(y_plane: np.ndarray, cfg: EncoderConfig,
         best = np.take_along_axis(stackc, pick[None], axis=0)[0]
 
     return _leaves_from_choices(choice, min_size, mi_rows, mi_cols)
+
+
+def _dp_leaf_overhead() -> float:
+    """Per-leaf fixed syntax-overhead estimate (bits) in the inter
+    partition DP's open-loop RD model (calibrated in the JAX package's
+    round 4: 160 bits cut bits at every rung of its RA ladder at flat
+    PSNR). SVT_TPU_DP_OVERHEAD (env) overrides it for calibration sweeps,
+    as in the JAX package."""
+    return float(os.environ.get("SVT_TPU_DP_OVERHEAD", "160.0"))
+
+
+def choose_partition_inter(cfg: EncoderConfig, mi_cols: int, mi_rows: int,
+                           ref_pyr, src_pyr):
+    """Square (and, with rect partitions, rect/4:1/T-shape) partition DP
+    for inter frames from motion-compensated residual energy: per depth,
+    full-pel ME and the SSE of the compensated block, all on the
+    pyramids' device in one pass (device_inter.dp_all_dev), then a
+    float64 open-loop RD model and the bottom-up DP on the host — the
+    JAX package's choose_partition_inter on its device path.
+
+    ref_pyr: the LAST reference's padded luma pyramid (full, 1/2, 1/4);
+    src_pyr: the frame's source pyramid (the full level padded to 64)."""
+    from svt_av1_tpu_torch.ops import device_inter as di
+    lam = rd_lambda(cfg.base_q_idx, cfg.bit_depth)
+    # quantizer step in pixel units (same scale as the SSE operands)
+    qstep = quant_ops.ac_quant(cfg.base_q_idx, 0, cfg.bit_depth) / 8.0
+    w_eff, h_eff = mi_cols * 4, mi_rows * 4
+    ph, pw = (-(-h_eff // 64) * 64, -(-w_eff // 64) * 64)
+    sizes = [s for s in (64, 32, 16, 8)
+             if cfg.min_partition_size <= s <= cfg.max_partition_size]
+    if 64 not in sizes:
+        sizes = [64] + sizes
+
+    def rd_model(sse, wh, mvs):
+        """Quantization-aware open-loop RD estimate from full-pel SSE:
+        distortion saturates at the coding floor ~N*qstep^2/12 and rate
+        follows the Gaussian R(D) shape N*log2(1+SSE/(N*qstep^2)), so
+        when residuals die after quantization the leaf-overhead term
+        decides and the DP merges."""
+        bw, bh = common.leaf_wh(wh)
+        n = float(bw * bh)
+        sse = np.asarray(sse, dtype=np.float64)
+        nq = n * qstep * qstep
+        mv_bits = 4.0 + 0.5 * (np.abs(mvs).sum(axis=1) > 0)
+        dist = np.minimum(sse, sse * 0.05 + 0.125 * nq)
+        rate = _dp_leaf_overhead() + mv_bits \
+            + 0.6 * n * np.log2(1.0 + sse / nq)
+        return dist + lam * rate
+
+    def arms_for(size):
+        half, quarter = size // 2, size // 4
+        arms = [("h", (size, half), ((0, 0), (0, half))),
+                ("v", (half, size), ((0, 0), (half, 0)))]
+        if size >= 32:
+            arms += [("h4", (size, quarter),
+                      tuple((0, i * quarter) for i in range(4))),
+                     ("v4", (quarter, size),
+                      tuple((i * quarter, 0) for i in range(4)))]
+        return arms
+
+    arm_spec = [(size, wh, offs) for size in sizes
+                if cfg.enable_rect_partitions and size >= 16
+                for (_, wh, offs) in arms_for(size)]
+    dp_res = di.dp_all_dev(ref_pyr, src_pyr, w_eff, h_eff, sizes, arm_spec)
+    cost = {}
+    rect_cost = {}
+    for size in sizes:
+        xs, ys = _block_grid(w_eff, h_eff, size)
+        rows = (h_eff + size - 1) // size
+        cols = (w_eff + size - 1) // size
+        mvs, sse = dp_res[size]
+        cost[size] = rd_model(sse, size, mvs).reshape(rows, cols)
+        if cfg.enable_rect_partitions and size >= 16:
+            for key, wh, offs in arms_for(size):
+                xs2 = np.concatenate([xs + dx for dx, _ in offs])
+                ys2 = np.concatenate([ys + dy for _, dy in offs])
+                ok = (xs2 + wh[0] <= pw) & (ys2 + wh[1] <= ph)
+                amvs, asse = dp_res[(size, tuple(wh))]
+                c2 = np.where(ok, rd_model(asse, wh, amvs), np.inf)
+                n = len(xs)
+                halves = [c2[i * n:(i + 1) * n].reshape(rows, cols)
+                          for i in range(len(offs))]
+                rect_cost[(size, key)] = sum(halves)
+                if key in ("h", "v"):
+                    rect_cost[(size, key + "0")] = halves[0]
+                    rect_cost[(size, key + "1")] = halves[1]
+
+    min_size = sizes[-1]
+    best = cost[min_size].copy()
+    choice = {}
+    for size in reversed(sizes[:-1]):
+        rows, cols = cost[size].shape
+        ch_rows, ch_cols = best.shape
+        cpad = np.pad(best, ((0, (-ch_rows) % 2), (0, (-ch_cols) % 2)))
+        sum4 = (cpad[0::2, 0::2] + cpad[0::2, 1::2]
+                + cpad[1::2, 0::2] + cpad[1::2, 1::2])
+        sum4 = sum4[:rows, :cols] + lam * 1.0
+        ys_b = np.arange(rows)[:, None] * size
+        xs_b = np.arange(cols)[None, :] * size
+        crosses = ((ys_b + size // 2 >= h_eff)
+                   | (xs_b + size // 2 >= w_eff))
+        options = [(0, np.where(crosses, np.inf, cost[size])),
+                   (1, sum4)]
+        if (size, "h") in rect_cost:
+            rb = lam * 2.0
+            options.append((2, np.where(crosses, np.inf,
+                                        rect_cost[(size, "h")] + rb)))
+            options.append((3, np.where(crosses, np.inf,
+                                        rect_cost[(size, "v")] + rb)))
+        if (size, "h4") in rect_cost:
+            rb4 = lam * 3.0  # rarer symbol + 3 extra leaves of overhead
+            options.append((4, np.where(crosses, np.inf,
+                                        rect_cost[(size, "h4")] + rb4)))
+            options.append((5, np.where(crosses, np.inf,
+                                        rect_cost[(size, "v4")] + rb4)))
+        if (size, "h0") in rect_cost and (size // 2) in cost:
+            # T-shapes: two child squares + one rect half
+            ch = cost[size // 2]
+            chp = np.full((2 * rows, 2 * cols), np.inf)
+            chp[:min(ch.shape[0], 2 * rows), :min(ch.shape[1], 2 * cols)] \
+                = ch[:2 * rows, :2 * cols]
+            tl, tr = chp[0::2, 0::2], chp[0::2, 1::2]
+            bl, br = chp[1::2, 0::2], chp[1::2, 1::2]
+            rbt = lam * 2.0  # T symbol + 2 extra leaves of overhead
+            tarms = [(6, tl + tr + rect_cost[(size, "h1")]),
+                     (7, rect_cost[(size, "h0")] + bl + br),
+                     (8, tl + bl + rect_cost[(size, "v1")]),
+                     (9, rect_cost[(size, "v0")] + tr + br)]
+            options += [(k, np.where(crosses, np.inf, v + rbt))
+                        for k, v in tarms]
+        stackc = np.stack([o[1] for o in options])
+        pick = np.argmin(stackc, axis=0)
+        choice[size] = np.array([o[0] for o in options])[pick]
+        best = np.take_along_axis(stackc, pick[None], axis=0)[0]
+
+    return _leaves_from_choices(choice, min_size, mi_rows, mi_cols)

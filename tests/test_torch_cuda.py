@@ -210,3 +210,150 @@ def test_encode_on_card_equals_cpu(cuda):
                                                device=d))
            for d in ("cuda", "cpu")}
     assert ivf["cuda"] == ivf["cpu"]
+
+
+@pytest.mark.parametrize("n", [256, 64])
+def test_quant_stage_kernel_at_the_inter_batch(cuda, n):
+    """The inter path's largest batches: B = 16320 rows, the single-ref
+    pair (2B) of 8160 16x16 luma blocks (n = 256) and of their 8x8
+    chroma blocks, U+V (n = 64). Exact in every mode and plane type."""
+    coeff, qv, lam, scan, tx = stage_rows(n, 0, 16320, 5 * n)
+    c, q, lm = (torch.as_tensor(a, device=cuda) for a in (coeff, qv, lam))
+    for g, w in zip(dev.quantize_qv(c, scan, q, 0, 8),
+                    dev.quantize_qv_plain(c, scan, q, 0, 8)):
+        assert torch.equal(g, w)
+    for plane_type in (0, 1):
+        for rl in (None, lm):
+            got = tmd.quant_stage_j(c, scan, q, 0, 8, tx, plane_type, rl)
+            want = tmd.quant_stage_plain(c, scan, q, 0, 8, tx, plane_type,
+                                         rl)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_pending_qc_resolves_a_cuda_tensor(cuda):
+    from svt_av1_tpu_torch.pipeline import common
+    qc = (torch.arange(3 * 8 * 8, device=cuda, dtype=torch.int16)
+          .reshape(3, 8, 8) - 100)
+    pend = common.PendingQC(qc)
+    for lane in (2, 0):
+        got = common.resolve_qc((pend, lane))
+        assert got.dtype == np.int32
+        assert np.array_equal(got, qc[lane].cpu().numpy())
+
+
+def _inter_inputs(device):
+    """A frame's source pyramid and chroma, three references prepared by
+    ref_prep_dev, on ``device`` (from a seeded clip)."""
+    from svt_av1_tpu_torch.ops import device_inter as tdi
+    from svt_av1_tpu_torch.pipeline import common
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=192, h=128, frames=4, seed=6)
+
+    def up(planes):
+        return [torch.as_tensor(p.astype(np.uint8), device=device)
+                for p in common.pad_frame_planes(*planes, dtype=np.int32)]
+
+    refs = [tdi.ref_prep_dev(up(frames[i])) for i in (0, 3, 2)]
+    src = up(frames[1])
+    return src, tdi.src_pyramid_dev(src[0]), refs
+
+
+def test_inter_programs_on_card_equal_cpu(cuda):
+    """The shape group (with compound), the partition DP's device work
+    and the flip decision on cuda equal the same functions on the CPU,
+    integer for integer."""
+    from svt_av1_tpu_torch.ops import device_inter as tdi
+    from svt_av1_tpu_torch.pipeline import rd
+    qp = quant_ops.make_quant_params(100)
+    lam = rd.rd_lambda(100, 8)
+    res = {}
+    for d in ("cuda", "cpu"):
+        src, spyr, refs = _inter_inputs(d)
+        gx, gy = np.meshgrid(np.arange(0, 192, 16), np.arange(0, 128, 16))
+        xs, ys = gx.reshape(-1), gy.reshape(-1)
+        recon = [torch.zeros_like(p) for p in src]
+        _, outs, _ = tdi.shape_group_issue(
+            recon, [r[1] for r in refs], [r[0][1] for r in refs],
+            [r[0][2] for r in refs], spyr, src[1], src[2], xs, ys, 16, qp,
+            lam, (0, 1), (2,), bd=8, rdoq=True)
+        dp = tdi.dp_all_dev(refs[0][1], spyr, 192, 128, (64, 32, 16, 8),
+                            [(32, (32, 16), ((0, 0), (0, 16)))])
+        b = len(xs)
+        fd, _ = tdi.flip_decision_issue(
+            src[0], recon[0], xs, ys, ys > 0, xs > 0, np.ones(b, bool),
+            np.zeros(b, bool), (0, 1, 2, 12), 16, qp, lam,
+            np.full(b, 192), np.full(b, 128), bd=8, rdoq=True)
+        res[d] = ([o.cpu() for o in outs] + [p.cpu() for p in recon]
+                  + [o.cpu() for o in fd], dp)
+    for g, w in zip(res["cuda"][0], res["cpu"][0]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert res["cuda"][1].keys() == res["cpu"][1].keys()
+    for k in res["cpu"][1]:
+        for g, w in zip(res["cuda"][1][k], res["cpu"][1][k]):
+            assert np.array_equal(g, w)
+
+
+def test_flip_apply_on_card_equals_cpu(cuda):
+    """flip_apply_fused's dependency-wave loop on cuda equals the CPU:
+    recon planes, coefficients, eobs and CfL choices."""
+    from svt_av1_tpu_torch.config import EncoderConfig
+    from svt_av1_tpu_torch.ops import device_tile as tdt
+    from svt_av1_tpu_torch.pipeline import common
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    from svt_av1_tpu_torch.pipeline.inter import InterFrameEncoder
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=192, h=128, frames=2, seed=8)
+    res = {}
+    for d in ("cuda", "cpu"):
+        cfg = EncoderConfig(width=192, height=128, intra_period=-1,
+                            intra_modes=(0, 1, 2, 12), tile_cols_log2=1,
+                            fixed_partition_size=16, device=d)
+        enc = InterFrameEncoder(cfg, Encoder(cfg).seq)
+        enc.leaf_sizes = common.fixed_leaf_sizes(
+            enc.mi_rows, enc.mi_cols, enc.seq.sb_rows, enc.seq.sb_cols, 16)
+        order = common.leaves_in_coding_order(
+            enc.leaf_sizes, enc.mi_rows, enc.mi_cols, enc.seq.sb_rows,
+            enc.seq.sb_cols)
+        n = len(order)
+        enc.qmap = None
+        enc.src = [torch.as_tensor(p.astype(np.uint8), device=d) for p in
+                   common.pad_frame_planes(*frames[1], dtype=np.int32)]
+        enc.recon = [torch.as_tensor(p.astype(np.uint8), device=d) for p in
+                     common.pad_frame_planes(*frames[0], dtype=np.int32)]
+        enc.qcoeff = [[None] * n for _ in range(3)]
+        enc.eobs = np.zeros((3, n), np.int32)
+        enc.block_is_inter = np.ones(n, bool)
+        enc.intra_mode = np.zeros(n, np.int32)
+        enc.intra_uv_cfl = np.zeros(n, bool)
+        enc.intra_alpha_u = np.zeros(n, np.int64)
+        enc.intra_alpha_v = np.zeros(n, np.int64)
+        flips = [(r, c, s, i, (0, 1, 2, 12)[i % 4])
+                 for i, (r, c, s) in enumerate(order) if i % 3]
+        tdt.flip_apply_fused(enc, enc._flip_waves(flips))
+        qcs = [common.resolve_qc(enc.qcoeff[p][i]) for p in range(3)
+               for i in range(n) if enc.qcoeff[p][i] is not None]
+        res[d] = ([p.cpu() for p in enc.recon], qcs, enc.eobs.copy(),
+                  enc.intra_uv_cfl.copy(), enc.intra_alpha_u.copy(),
+                  enc.intra_alpha_v.copy())
+    for g, w in zip(res["cuda"][0], res["cpu"][0]):
+        assert torch.equal(g, w)
+    assert len(res["cuda"][1]) == len(res["cpu"][1]) > 0
+    for g, w in zip(res["cuda"][1], res["cpu"][1]):
+        assert np.array_equal(g, w)
+    for g, w in zip(res["cuda"][2:], res["cpu"][2:]):
+        assert np.array_equal(g, w)
+
+
+def test_inter_encode_on_card_equals_cpu(cuda):
+    """A random-access stream (hier-3, 4 tile columns, partition DP) on
+    the card equals the same encoder on the CPU."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=128, frames=9, seed=3)
+    ivf = {d: encode_ivf(frames, preset_config(
+        width=448, height=128, preset=5, intra_period=-1,
+        hierarchical_levels=3, tile_columns=2, device=d))
+        for d in ("cuda", "cpu")}
+    assert ivf["cuda"] == ivf["cpu"]

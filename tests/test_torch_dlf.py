@@ -16,6 +16,7 @@ import torch
 from svt_av1_tpu.ops import device as jdev
 from svt_av1_tpu.ops import dlf as jdlf
 from svt_av1_tpu_torch.ops import device as dev
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("bd", [8, 10])

@@ -19,6 +19,7 @@ from svt_av1_tpu_torch.app.cli import preset_config
 from svt_av1_tpu_torch.convert import config_from_jax
 from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
 from svt_av1_tpu_torch.utils.clip import make_clip
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # all 13 intra modes with angle deltas: zones 1, 2 and 3 of the
 # directional predictor (the edge filter is off — a later slice)

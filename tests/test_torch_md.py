@@ -20,6 +20,7 @@ from svt_av1_tpu_torch.ops import device_md as tmd
 from svt_av1_tpu_torch.ops import quant as quant_ops
 from svt_av1_tpu_torch.pipeline import common, md, rd
 from svt_av1_tpu_torch.utils.blocks import TX_16X16, get_scan
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CANDS = [(0, 0), (1, 0), (2, 0), (9, 0), (12, 0), (1, -2), (4, 1)]
 NAMES = ["modes", "deltas", "qcoeff", "eob", "recon", "cost", "alphas",

@@ -1,12 +1,14 @@
 """Boundaries of the PyTorch port (svt_av1_tpu_torch).
 
-The port imports nothing of JAX and nothing of the JAX package, keeps its
-own copies of the constant tables (equal to the JAX package's), carries a
-JAX config across, refuses the tools of later slices, and never falls back
-to the CPU when it was asked for the card.
+The port imports nothing of JAX and nothing of the JAX package (an
+all-intra and an inter encode load every module of the port's main path),
+keeps its own copies of the constant tables (equal to the JAX package's),
+carries a JAX config across, refuses the tools of later slices, and never
+falls back to the CPU when it was asked for the card.
 """
 
 import dataclasses
+import os
 import re
 import subprocess
 import sys
@@ -61,11 +63,22 @@ def test_port_runs_without_jax_modules():
         "                    intra_modes=(0, 1, 2, 12), device='cpu')\n"
         "ivf = encode_ivf([f], cfg)\n"
         "assert len(ivf) > 44\n"
+        "cfg = EncoderConfig(width=64, height=64, intra_period=-1,\n"
+        "                    hierarchical_levels=1,\n"
+        "                    fixed_partition_size=None,\n"
+        "                    intra_modes=(0, 1, 2, 12), device='cpu')\n"
+        "g = tuple(np.ascontiguousarray(p[::-1]) for p in f)\n"
+        "ivf = encode_ivf([f, g, f], cfg)\n"
+        "assert len(ivf) > 44\n"
         "print(' '.join(sorted(sys.modules)))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    # one torch thread: the suite's workers share few cores
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300,
                          check=True).stdout.split()
-    assert "svt_av1_tpu_torch.pipeline.wavefront" in out
+    for mod in ("pipeline.wavefront", "pipeline.inter", "pipeline.mvp",
+                "ops.device_inter", "ops.device_tile", "entropy.inter_modes"):
+        assert "svt_av1_tpu_torch." + mod in out, mod
     loaded = [m for m in out if m.split(".")[0] == "jax"
               or JAX_PKG.match(m)]
     assert not loaded, loaded
@@ -95,7 +108,7 @@ def test_config_from_jax_round_trips():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("intra_period", -1), ("hierarchical_levels", 3), ("enable_cdef", True),
+    ("enable_cdef", True),
     ("enable_restoration", True), ("adaptive_quantization", 1),
     ("target_bit_rate", 1000000), ("film_grain_strength", 10),
     ("enable_source_denoise", True), ("mesh_shape", (1, 2)),
@@ -103,6 +116,13 @@ def test_config_from_jax_round_trips():
 def test_later_slices_raise_not_implemented(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         EncoderConfig(**{**INTRA, field: value})
+
+
+@pytest.mark.parametrize("field,value", [("intra_period", -1),
+                                         ("hierarchical_levels", 3)])
+def test_inter_configs_are_accepted(field, value):
+    cfg = EncoderConfig(**{**INTRA, field: value})
+    assert getattr(cfg, field) == value
 
 
 def test_default_device_entry_point_needs_the_card():

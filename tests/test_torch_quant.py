@@ -20,6 +20,7 @@ from svt_av1_tpu.ops import quant as jquant
 from svt_av1_tpu_torch.ops import device as dev
 from svt_av1_tpu_torch.utils.blocks import (TX_4X4, TX_8X8, TX_16X16,
                                             TX_32X32, get_scan)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TX_OF_N = {16: TX_4X4, 64: TX_8X8, 256: TX_16X16, 1024: TX_32X32}
 EXTREME = (0, 32767, -32767, 1 << 20, -(1 << 20), 1, -1)

@@ -22,6 +22,7 @@ from svt_av1_tpu_torch.ops import device as dev
 from svt_av1_tpu_torch.ops import device_md as tmd
 from tests.torch_quant_cases import (ROW_LENGTHS, TIE_ROWS, stage_case,
                                      tx_size_for)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 OUT = ("q", "dq", "eob", "rate")
 

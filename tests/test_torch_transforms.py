@@ -14,6 +14,7 @@ import torch
 
 from svt_av1_tpu.ops import device as jdev
 from svt_av1_tpu_torch.ops import device as dev
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # (w, h, tx types)
 CASES = [(4, 4, tuple(range(16))), (8, 8, tuple(range(16))),
