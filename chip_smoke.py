@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    (``quantize_qv``) and fused quantize + RDOQ-lite trim + rate
    (``quant_stage_j``) — against its plain PyTorch versions on the card,
    exact, over row lengths, log_scales, plane types, RDOQ on/off and
-   batch sizes, and at the inter path's largest batches (B = 16320 rows
-   of n = 256 and of n = 64), with times beside the bound;
+   batch sizes, and at the most rows a 1080p shape group can give it
+   (B = 16320 rows of n = 256 and of n = 64), with times beside the
+   bound;
 4. the first slice's main path through the user entry point: a
    1920x1080 8-bit all-intra stream (preset 5, qp 40) through
    ``encode_ivf`` on ``cuda``, whose sha256 must equal the JAX package's
@@ -36,8 +37,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
 6. each mode timed at the heaviest shape both encodes gave the fused
    kernel, and one wave of the all-intra path under torch.profiler
    (device busy share, device operations);
-7. a ``{"kernels": [...]}`` line (launches over both encodes), the
-   card's line, and last the device line.
+7. a ``{"kernels": [...]}`` line (``launches``: the sum over both
+   encodes; ``launches_by_path``: each encode's own count, and the RA
+   encode's inside its inter frames), the card's line, and last the
+   device line.
 
 Needs one CUDA device; without one it exits 2 and prints no result.
 Details (per-shape times, stage spans, ptxas report) go to
@@ -71,8 +74,10 @@ GOLDEN_RA_SHA256 = \
     "3f3f8896fd6341d88d0ab7231ee84b994c93834f2e6a7a808da2e634457e07a4"
 GOLDEN_RA_BYTES = 415319
 RA_FRAMES, RA_LEVELS = 9, 3
-# the inter path's largest quantization-stage batches: the [2B] single-ref
-# pair of 8160 16x16 luma blocks (n = 256) and U+V of their 8x8 chroma
+# synthetic large-batch checks at the most rows a 1080p shape group can
+# give the quantization stage: the [2B] single-ref pair of 8160 16x16 luma
+# blocks (n = 256) and U+V of their 8x8 chroma. The RA clip's partition DP
+# picks large blocks, so its own launches stay at B <= 968.
 INTER_BATCHES = ((256, 16320), (64, 16320))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (data sheet)
 INT32_LANES_PER_SM = 64          # Hopper SM: 64 INT32 lanes (128 FP32)
@@ -494,12 +499,13 @@ def phase_inter(torch):
         return call
 
     def group_spy(fn):
-        """Keep the arguments of the largest shape group (its recon
-        planes cloned) for the profiled replay."""
+        """Keep the arguments of the largest shape group for the
+        profiled replay. Only references: the group writes the recon
+        planes and reads nothing of them, so the replay clones whatever
+        they hold then, and the timed encode copies nothing."""
         def call(recon, *a, **k):
             if len(a[6]) > biggest.get("b", 0):
-                biggest.update(b=len(a[6]), recon=[p.clone() for p in recon],
-                               args=a, kw=k)
+                biggest.update(b=len(a[6]), recon=recon, args=a, kw=k)
             return fn(recon, *a, **k)
         return call
 
@@ -640,11 +646,12 @@ def phase_profile(torch, np) -> dict:
     return res
 
 
-def kernel_entries(torch, launches, shapes, int32_ops) -> list:
+def kernel_entries(torch, by_path, shapes, int32_ops) -> list:
     """The kernels line: the kernel in each mode, timed at the heaviest
     shape (B * n) that the main path's two encodes gave that mode — the
     quantize-only mode, which the main path does not launch, at the
-    heaviest fused shape — against its plain version."""
+    heaviest fused shape — against its plain version. ``by_path``:
+    {path: {mode: launches}}, each counted from 0 in its own run."""
     replaces = "svt_av1_tpu/ops/device.py:728 quantize_pallas " \
         "(quantize_qv contract, device.py:250)"
     fused = replaces + "; fused with _rate_cdf_j " \
@@ -672,7 +679,10 @@ def kernel_entries(torch, launches, shapes, int32_ops) -> list:
             "name": name, "route": "cuda",
             "source": "svt_av1_tpu_torch/csrc/quant.cu",
             "replaces": what[name][1], "mode": what[name][0],
-            "launches": launches.get(name, 0),
+            "launches": sum(p.get(name, 0) for path, p in by_path.items()
+                            if path != "ra_inter_frames"),
+            "launches_by_path": {path: p.get(name, 0)
+                                 for path, p in by_path.items()},
             "exact": row["exact"], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "kernel_ms": row["ms"],
             "call_ms": row["call_ms"],
@@ -695,12 +705,12 @@ def main() -> int:
     grid = phase_kernels(torch, env["int32_ops_per_s"])
     slice_res, shapes = phase_slice(torch)
     inter_res, inter_shapes, biggest = phase_inter(torch)
-    launches = collections.Counter(slice_res["launches"])
-    launches.update(inter_res["launches"])
+    by_path = {"all_intra": slice_res["launches"],
+               "random_access": inter_res["launches"],
+               "ra_inter_frames": inter_res["inter_launches"]}
     shapes = collections.Counter(shapes)
     shapes.update(inter_shapes)
-    kernels = kernel_entries(torch, launches, shapes,
-                             env["int32_ops_per_s"])
+    kernels = kernel_entries(torch, by_path, shapes, env["int32_ops_per_s"])
     group_prof = phase_group_profile(torch, biggest)
     prof = phase_profile(torch, np)
     os.makedirs(OUT_DIR, exist_ok=True)

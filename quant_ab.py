@@ -56,10 +56,12 @@ print(json.dumps({"quantize_qv": rows, "wave": prof}))
 """
 
 
-def run(tree: str) -> dict:
+def run(tree: str, child: str = CHILD) -> dict:
+    """Run ``child`` in ``tree`` with this checkout's chip_smoke.py as its
+    argument; returns the JSON of its last output line."""
     timer = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "chip_smoke.py")
-    res = subprocess.run([sys.executable, "-c", CHILD, timer], cwd=tree,
+    res = subprocess.run([sys.executable, "-c", child, timer], cwd=tree,
                          capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise SystemExit(f"run in {tree} failed:\n{res.stdout}\n"

@@ -7,7 +7,11 @@ recon that the earlier waves wrote, so the prediction edges are exactly
 those a decoder sees. The JAX program runs the waves as one
 ``lax.fori_loop`` over bucket-padded lane arrays; here the loop over
 waves is a plain Python loop over the real lanes, so no lane is padded,
-no scatter needs a drop mode and no index repeats. Per lane the integer
+no scatter needs a drop mode and no index repeats. Each class runs a
+wave's lanes in one step: same-wave lanes are mutually edge-independent,
+so the JAX package's re-chunking of waves into steps of at most 8 lanes
+(which bounds its padded lane width) changes no integer and is not
+carried over. Per lane the integer
 math is that of ``inter._flip_apply_wave``: the luma full loop with the
 chosen mode, then the chroma choice between that mode and CfL.
 
@@ -224,32 +228,6 @@ def make_flip_body(class_spec: tuple, n_waves: int, bd: int,
     return program
 
 
-FLIP_LANE_CAP = 8
-
-
-def _balance_waves(waves, cap: int = FLIP_LANE_CAP):
-    """Split dependency waves into steps of at most ``cap`` lanes per
-    shape class. Same-wave lanes are mutually edge-independent (the
-    _flip_waves invariant), so the split changes no block's prediction
-    edges: earlier sub-steps only write pixels no later same-wave lane
-    reads."""
-    out = []
-    for wave in waves:
-        byc = {}
-        for e in wave:
-            byc.setdefault(common.leaf_wh(e[2]), []).append(e)
-        k = max((len(v) + cap - 1) // cap for v in byc.values())
-        if k == 1:
-            out.append(wave)
-            continue
-        sub = [[] for _ in range(k)]
-        for v in byc.values():
-            for i, e in enumerate(v):
-                sub[i % k].append(e)
-        out.extend(sub)
-    return out
-
-
 def host_recode_raises() -> None:
     """Where the JAX package decides and recodes flips on the host (RDOQ
     at qindex 0, which it gates per qindex there) the port raises."""
@@ -269,7 +247,6 @@ def flip_apply_fused(enc, waves) -> None:
     cfg = enc.cfg
     if not waves:
         return
-    waves = _balance_waves(waves)
     qcache = {}
 
     def lane_q(r, c):

@@ -297,13 +297,10 @@ def choose_partition(y_plane: np.ndarray, cfg: EncoderConfig,
     return _leaves_from_choices(choice, min_size, mi_rows, mi_cols)
 
 
-def _dp_leaf_overhead() -> float:
-    """Per-leaf fixed syntax-overhead estimate (bits) in the inter
-    partition DP's open-loop RD model (calibrated in the JAX package's
-    round 4: 160 bits cut bits at every rung of its RA ladder at flat
-    PSNR). SVT_TPU_DP_OVERHEAD (env) overrides it for calibration sweeps,
-    as in the JAX package."""
-    return float(os.environ.get("SVT_TPU_DP_OVERHEAD", "160.0"))
+# Per-leaf fixed syntax-overhead estimate (bits) in the inter partition
+# DP's open-loop RD model. Calibrated in the JAX package's round 4: 160
+# bits cut bits at every rung of its RA ladder at flat PSNR.
+DP_LEAF_OVERHEAD = 160.0
 
 
 def choose_partition_inter(cfg: EncoderConfig, mi_cols: int, mi_rows: int,
@@ -340,7 +337,7 @@ def choose_partition_inter(cfg: EncoderConfig, mi_cols: int, mi_rows: int,
         nq = n * qstep * qstep
         mv_bits = 4.0 + 0.5 * (np.abs(mvs).sum(axis=1) > 0)
         dist = np.minimum(sse, sse * 0.05 + 0.125 * nq)
-        rate = _dp_leaf_overhead() + mv_bits \
+        rate = DP_LEAF_OVERHEAD + mv_bits \
             + 0.6 * n * np.log2(1.0 + sse / nq)
         return dist + lam * rate
 

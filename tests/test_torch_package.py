@@ -34,7 +34,8 @@ INTRA = dict(intra_period=0, intra_modes=(0, 1, 2, 12), width=64,
 def test_port_sources_import_no_jax():
     files = sorted(f for f in PORT.rglob("*.py")
                    if (PORT / "build") not in f.parents)
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "quant_ab.py",
+              REPO / "inter_ab.py"]
     assert len(files) > 30
     bad = []
     for f in files:

@@ -186,7 +186,10 @@ def _leaf_map():
     return leaves
 
 
-def _flip_encoders():
+def _flip_encoders(leaves=None, pick=None):
+    """JAX and port inter encoders on one leaf map (``_leaf_map`` by
+    default) and the flips: the leaves in coding order for which
+    ``pick(i, r, c)`` holds (by default every one but each third)."""
     jcfg = JaxConfig(width=W, height=H, qp=40, intra_modes=(0, 1, 2, 12),
                      tile_cols_log2=1, intra_period=-1, backend="device")
     cfg = config_from_jax(dataclasses.asdict(jcfg), device="cpu")
@@ -196,7 +199,8 @@ def _flip_encoders():
     src = jcommon.pad_frame_planes(*frames[1], dtype=np.int32)
     recon = [p.astype(np.uint8) for p in
              jcommon.pad_frame_planes(*frames[0], dtype=np.int32)]
-    leaves = _leaf_map()
+    leaves = leaves or _leaf_map()
+    pick = pick or (lambda i, r, c: i % 3 != 1)
     order = jcommon.leaves_in_coding_order(leaves, jenc.mi_rows,
                                            jenc.mi_cols, 1, 2)
     n = len(order)
@@ -215,14 +219,11 @@ def _flip_encoders():
         enc.intra_alpha_v = np.zeros(n, np.int64)
     modes = (0, 1, 2, 12)
     flips = [(r, c, s, i, modes[i % 4]) for i, (r, c, s) in enumerate(order)
-             if i % 3 != 1]
+             if pick(i, r, c)]
     return jenc, tenc, flips
 
 
-def test_flip_apply_matches_jax():
-    jenc, tenc, flips = _flip_encoders()
-    waves = jenc._flip_waves(flips)
-    assert tenc._flip_waves(flips) == waves and len(waves) > 2
+def _assert_flip_apply_equal(jenc, tenc, flips, waves):
     assert jdt.flip_apply_fused(jenc, waves)
     tdt.flip_apply_fused(tenc, waves)
     for g, w in zip(tenc.recon, jenc.recon):
@@ -237,6 +238,28 @@ def test_flip_apply_matches_jax():
             if a is not None:
                 _eq(tcommon.resolve_qc(a), jcommon.resolve_qc(b))
     assert (~tenc.block_is_inter).sum() == len(flips)
+
+
+def test_flip_apply_matches_jax():
+    jenc, tenc, flips = _flip_encoders()
+    waves = jenc._flip_waves(flips)
+    assert tenc._flip_waves(flips) == waves and len(waves) > 2
+    _assert_flip_apply_equal(jenc, tenc, flips, waves)
+
+
+def test_flip_apply_wide_wave_matches_jax():
+    """One wave of 32 8x8 lanes (every other 8x8 block in both
+    directions, so no flip's edges touch another's pixels): the JAX
+    package re-chunks it into steps of at most 8 lanes, the port runs it
+    in one step; the integers are the same."""
+    leaves = {(r, c): 8 for r in range(0, H // 4, 2)
+              for c in range(0, W // 4, 2)}
+    jenc, tenc, flips = _flip_encoders(
+        leaves, lambda i, r, c: r % 4 == 0 and c % 4 == 0)
+    waves = jenc._flip_waves(flips)
+    assert tenc._flip_waves(flips) == waves
+    assert [len(w) for w in waves] == [32]
+    _assert_flip_apply_equal(jenc, tenc, flips, waves)
 
 
 def test_flip_apply_at_qindex_0_with_rdoq_raises():
