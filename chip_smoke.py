@@ -23,7 +23,12 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    ``encode_ivf`` on ``cuda``, whose sha256 must equal the JAX package's
    stream of the same clip (``GOLDEN_*``), whose run must have launched
    the fused kernel, and in which the plain trim and rate must not have
-   run;
+   run. Every key frame (here and in 5) must run the fused frame-batched
+   tile program (``device_tile.run_tiles_fused``) once over its 4 tiles,
+   launching the kernel inside it, and the per-wave loop
+   (``_code_wave``) never; per key frame its compute span, the
+   ``intra_tiles_fused`` span, the program's wave and class steps and
+   the kernel's launches and shapes inside it are printed;
 5. ``[inter]``, the operating point of ``bench.py``: 9 frames of
    1920x1080 random access (one key frame, then a mini-GOP of 8 inter
    frames as a 3-level hierarchical-B pyramid with compound prediction,
@@ -35,8 +40,11 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    the flipped blocks, the kernel's launches and shapes inside the inter
    frames, and the largest shape group under torch.profiler;
 6. each mode timed at the heaviest shape both encodes gave the fused
-   kernel, and one wave of the all-intra path under torch.profiler
-   (device busy share, device operations);
+   kernel; one whole fused key frame program (the all-intra clip's last
+   key frame, replayed plain for its wall and under torch.profiler for
+   its device busy time and device operations), and beside it the
+   per-wave path's old reading, one wave through
+   ``decide_block_batch_dev``;
 7. a ``{"kernels": [...]}`` line (``launches``: the sum over both
    encodes; ``launches_by_path``: each encode's own count, and the RA
    encode's inside its inter frames), the card's line, and last the
@@ -67,6 +75,7 @@ GOLDEN_SHA256 = \
     "ac93b471706ee25d2ea5379faa69b2d76264e7b097da42035ee614b52ecdb8dc"
 GOLDEN_BYTES = 777750
 WIDTH, HEIGHT, FRAMES, QP, PRESET = 1920, 1080, 2, 40, 5
+TILES = 4       # preset 5 at 1920 wide: 4 tile columns (app/cli.py)
 # the JAX package's stream of bench.py's operating point: encode_ivf(
 # backend="host") on make_clip(1920, 1080, frames=9, seed=3), preset 5,
 # qp 40, intra_period -1, hierarchical_levels 3 (4 tile columns by width)
@@ -122,15 +131,20 @@ def _run(cmd) -> str:
         return f"unavailable ({e.__class__.__name__})"
 
 
-def phase_environment(torch) -> dict:
-    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
-                "--format=csv,noheader"])
+def _max_sm_mhz() -> float:
+    """The card's maximum SM clock in MHz, from nvidia-smi."""
     clk = _run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                 "--format=csv,noheader,nounits"])
     try:
-        sm_mhz = float(clk.splitlines()[0])
+        return float(clk.splitlines()[0])
     except (ValueError, IndexError):
         raise SystemExit(f"cannot read the SM clock from nvidia-smi: {clk}")
+
+
+def phase_environment(torch) -> dict:
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"])
+    sm_mhz = _max_sm_mhz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     int32_ops = sms * INT32_LANES_PER_SM * sm_mhz * 1e6
     from svt_av1_tpu_torch import cuda_build
@@ -201,20 +215,18 @@ def phase_build() -> dict:
             "sass": {f"n={n} mode={m}": v for (n, m), v in sass.items()}}
 
 
-_CYCLES_PER_MS = []
+_SM_MHZ = []
 
 
 def _keep_busy(torch, ms: float) -> None:
-    """Enqueue a device-side sleep of about ``ms`` milliseconds."""
-    if not _CYCLES_PER_MS:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        torch.cuda._sleep(10_000_000)
-        b.record()
-        b.synchronize()
-        _CYCLES_PER_MS.append(10_000_000 / a.elapsed_time(b))
-    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+    """Enqueue a device-side sleep of at least ``ms`` milliseconds. The
+    sleep counts SM cycles; they are taken at the card's maximum SM
+    clock, so a lower clock only lengthens it (a rate calibrated while
+    the clock was still low shortens it once the clock rises, and the
+    card then waits for the host inside the timed window)."""
+    if not _SM_MHZ:
+        _SM_MHZ.append(_max_sm_mhz())
+    torch.cuda._sleep(int(ms * _SM_MHZ[0] * 1e3))
 
 
 def _time_ms(torch, fn, reps: int = 10, trials: int = 21):
@@ -374,17 +386,68 @@ def phase_kernels(torch, int32_ops: float) -> list:
     return rows
 
 
+def _keyframe_spies(keys):
+    """Spies on the key frames' paths, recording into ``keys``: per key
+    frame the fused frame program's tiles, steps and kernel launches
+    (mode, B, n, log_scale) inside it and inside the whole key frame
+    compute, the per-wave loop's calls, and the last frame program's
+    arguments for the profiled replay."""
+    from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.ops import device_tile as tdt
+    from svt_av1_tpu_torch.pipeline import wavefront as twf
+    keys.update(frames=[], code_wave=0)
+
+    def launches_in(fn, into):
+        before = collections.Counter(dev.LAUNCH_SHAPES)
+        out = fn()
+        into.update(collections.Counter(dev.LAUNCH_SHAPES) - before)
+        return out
+
+    def compute_spy(fn):
+        def call(self, *a, **k):
+            rec = {"programs": [], "shapes": collections.Counter(),
+                   "program_shapes": collections.Counter()}
+            keys["frames"].append(rec)
+            return launches_in(lambda: fn(self, *a, **k), rec["shapes"])
+        return call
+
+    def program_spy(fn):
+        def call(enc, metas, *a):
+            rec = keys["frames"][-1]
+            out = launches_in(lambda: fn(enc, metas, *a),
+                              rec["program_shapes"])
+            rec["programs"].append(dict(enc.fused_stats))
+            keys["replay"] = (enc, metas) + a
+            return out
+        return call
+
+    def wave_spy(fn):
+        def call(*a, **k):
+            keys["code_wave"] += 1
+            return fn(*a, **k)
+        return call
+
+    spies = [(twf.WavefrontIntraEncoder, "encode_compute", compute_spy),
+             (twf.WavefrontIntraEncoder, "_code_wave", wave_spy)]
+    if hasattr(tdt, "run_tiles_fused"):    # a checkout before the program
+        spies.append((tdt, "run_tiles_fused", program_spy))
+    return spies
+
+
 def _encode_counted(torch, frames, cfg, spies=()):
     """encode_ivf on the card with the launch counters and spans set to 0
     just before and read just after; the plain trim and rate are counted
     too (the fused kernel replaces both on the main path). ``spies``:
-    (object, attribute, wrapper factory) patched in for the run only.
-    Returns (ivf, seconds, launches, shapes, plain calls, spans)."""
+    (object, attribute, wrapper factory) patched in for the run only;
+    the key frames' spies always are (``_keyframe_spies``).
+    Returns (ivf, seconds, launches, shapes, plain calls, spans, key
+    frame records)."""
     from svt_av1_tpu_torch.ops import device as dev
     from svt_av1_tpu_torch.ops import device_md as tmd
     from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
     from svt_av1_tpu_torch.utils.trace import TRACER
     plain_calls = collections.Counter()
+    keys = {}
 
     def counted(nm, fn):
         def call(*a, **k):
@@ -393,7 +456,8 @@ def _encode_counted(torch, frames, cfg, spies=()):
         return call
 
     patches = [(tmd, nm, lambda fn, nm=nm: counted(nm, fn))
-               for nm in ("rdoq_trim_j", "_rate_cdf_j")] + list(spies)
+               for nm in ("rdoq_trim_j", "_rate_cdf_j")] + list(spies) \
+        + list(_keyframe_spies(keys))
     saved = [(obj, nm, getattr(obj, nm)) for obj, nm, _ in patches]
     for (obj, nm, wrap), (_, _, fn) in zip(patches, saved):
         setattr(obj, nm, wrap(fn))
@@ -412,7 +476,50 @@ def _encode_counted(torch, frames, cfg, spies=()):
     dt = time.perf_counter() - t0
     TRACER.enabled = False
     return (ivf, dt, dict(dev.LAUNCHES), dict(dev.LAUNCH_SHAPES),
-            dict(plain_calls), TRACER)
+            dict(plain_calls), TRACER, keys)
+
+
+def _keyframe_report(tag, keys, tracer, tiles: int) -> dict:
+    """Print the key frames' path and fail unless every key frame ran
+    the frame-batched program once over ``tiles`` tiles and the per-wave
+    loop never ran."""
+    key_s = [s["dur"] for s in tracer.spans if s["stage"] == "keyframe"]
+    fused_s = [s["dur"] for s in tracer.spans
+               if s["stage"] == "intra_tiles_fused"]
+    for i, rec in enumerate(keys["frames"]):
+        progs = rec["programs"]
+        steps = ", ".join(f"{p['wave_steps']} wave steps, "
+                          f"{p['class_steps']} class steps, "
+                          f"{p['lanes']} lanes in {p['classes']} classes"
+                          for p in progs)
+        print(f"[{tag}] key frame {i}: compute {key_s[i]:.3f} s, "
+              f"intra_tiles_fused {fused_s[i] if i < len(fused_s) else 0:.3f}"
+              f" s; frame program x{len(progs)} over "
+              f"{[p['tiles'] for p in progs]} tiles: {steps}", flush=True)
+        print(f"[{tag}] key frame {i} kernel launches: "
+              f"{sum(rec['shapes'].values())} in the compute "
+              f"({sum(rec['program_shapes'].values())} in the frame "
+              f"program); shapes in the program "
+              f"{_shape_keys(rec['program_shapes'])}", flush=True)
+    for rec in keys["frames"]:
+        if [p["tiles"] for p in rec["programs"]] != [tiles]:
+            raise SystemExit(f"{tag}: a key frame did not run the frame "
+                             f"program once over {tiles} tiles: "
+                             f"{rec['programs']}")
+        if not rec["program_shapes"]:
+            raise SystemExit(f"{tag}: the frame program launched no kernel")
+    if keys["code_wave"]:
+        raise SystemExit(f"{tag}: the per-wave loop ran "
+                         f"{keys['code_wave']} times")
+    print(f"[{tag}] every key frame through run_tiles_fused over {tiles} "
+          f"tiles; per-wave _code_wave calls 0", flush=True)
+    return {"keyframe_compute_s": key_s, "intra_tiles_fused_s": fused_s,
+            "programs": [r["programs"] for r in keys["frames"]],
+            "launch_shapes": [_shape_keys(r["shapes"])
+                              for r in keys["frames"]],
+            "program_launch_shapes": [_shape_keys(r["program_shapes"])
+                                      for r in keys["frames"]],
+            "code_wave_calls": keys["code_wave"]}
 
 
 def _check_stream(what, ivf, sha, golden_bytes, golden_sha) -> None:
@@ -434,7 +541,7 @@ def phase_slice(torch):
     frames = make_clip(w=WIDTH, h=HEIGHT, frames=FRAMES, seed=3)
     cfg = preset_config(width=WIDTH, height=HEIGHT, qp=QP, preset=PRESET,
                         intra_period=0, device="cuda")
-    ivf, dt, launches, shapes, plain_calls, tracer = _encode_counted(
+    ivf, dt, launches, shapes, plain_calls, tracer, keys = _encode_counted(
         torch, frames, cfg)
     sha = hashlib.sha256(ivf).hexdigest()
     spans = tracer.summary()
@@ -454,8 +561,10 @@ def phase_slice(torch):
                          f"{plain_calls}")
     print(f"[slice] stream equals the JAX golden; launches {launches}; "
           f"plain rdoq_trim_j / _rate_cdf_j calls 0", flush=True)
+    key = _keyframe_report("slice", keys, tracer, TILES)
     return {"seconds": dt, "seconds_per_frame": dt / FRAMES,
-            "keyframe_span_s": keyframes, "bytes": len(ivf),
+            "keyframe_span_s": keyframes, "keyframes": key,
+            "replay": keys["replay"], "bytes": len(ivf),
             "sha256": sha, "launches": launches,
             "plain_trim_rate_calls": plain_calls,
             "launch_shapes": _shape_keys(shapes), "spans": spans}, shapes
@@ -465,10 +574,12 @@ INTER_SPANS = ("inter_partition_dp", "inter_blocks", "intra_flip",
                "flip_decision", "flip_apply", "tmvp_build", "dlf", "entropy")
 
 
-def phase_inter(torch):
+def phase_inter(torch, check_keyframes: bool = True):
     """The random-access operating point. Returns (result, {(mode, B, n,
     log_scale): launches} over the whole encode, the largest shape
-    group's arguments)."""
+    group's arguments). ``check_keyframes=False`` (``inter_ab.py`` on a
+    checkout before the fused keyframe program) skips the key frame
+    report and its checks."""
     from svt_av1_tpu_torch.app.cli import preset_config
     from svt_av1_tpu_torch.ops import device as dev
     from svt_av1_tpu_torch.ops import device_inter as di
@@ -509,7 +620,7 @@ def phase_inter(torch):
             return fn(recon, *a, **k)
         return call
 
-    ivf, dt, launches, shapes, plain_calls, tracer = _encode_counted(
+    ivf, dt, launches, shapes, plain_calls, tracer, keys = _encode_counted(
         torch, frames, cfg,
         spies=((InterFrameEncoder, "encode_compute", compute_spy),
                (di, "shape_group_issue", group_spy)))
@@ -546,8 +657,10 @@ def phase_inter(torch):
                          f"{plain_calls}")
     print(f"[inter] stream equals the JAX golden; plain rdoq_trim_j / "
           f"_rate_cdf_j calls 0", flush=True)
+    key = _keyframe_report("inter", keys, tracer, TILES) \
+        if check_keyframes else None
     return {"seconds": dt, "seconds_per_frame": dt / RA_FRAMES,
-            "keyframe_compute_s": key_s,
+            "keyframe_compute_s": key_s, "keyframes": key,
             "inter_s_per_frame": (dt - key_s) / n_inter,
             "inter_compute_s_per_frame": sum(frame_s) / n_inter,
             "inter_frame_span_s": frame_s, "bytes": len(ivf),
@@ -593,11 +706,57 @@ def phase_group_profile(torch, biggest) -> dict:
     return res
 
 
+def phase_keyframe_profile(torch, replay) -> dict:
+    """One whole fused key frame program (the all-intra clip's last key
+    frame, ``run_tiles_fused`` on its tile states) replayed twice: once
+    plain for its wall time, once under torch.profiler (device activity
+    only) for its device operations and device busy ms (the sum of device
+    event times). The profiler's raw events are read directly: building
+    its event tree over a million operations takes minutes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from svt_av1_tpu_torch.ops import device_tile as tdt
+    enc, metas, frame_src, frame_recon, cands = replay
+
+    def run() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tdt.run_tiles_fused(enc, metas, frame_src, frame_recon, cands)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    wall_ms = run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = run()
+    t1 = time.perf_counter()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda]
+    busy_ms = sum(dev_ns) / 1e6
+    stats = dict(enc.fused_stats)
+    res = {"wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+           "device_busy_share_profiled":
+               busy_ms / prof_wall_ms if busy_ms else None,
+           "device_ops": len(dev_ns), "program": stats,
+           "profiler_post_s": time.perf_counter() - t1}
+    share = "not measured" if res["device_busy_share"] is None else (
+        f"{100 * res['device_busy_share']:.2f}% of the plain wall, "
+        f"{100 * res['device_busy_share_profiled']:.2f}% of the profiled")
+    print(f"[profile] one fused key frame program ({stats['tiles']} tiles, "
+          f"{stats['wave_steps']} wave steps, {stats['class_steps']} class "
+          f"steps, {stats['lanes']} lanes): wall {wall_ms:.2f} ms plain, "
+          f"{prof_wall_ms:.2f} ms profiled; device busy {busy_ms:.3f} ms "
+          f"({share}), {len(dev_ns)} device ops", flush=True)
+    return res
+
+
 def phase_profile(torch, np) -> dict:
-    """Device busy share of the wave loop (96% of the slice's time): one
-    wave of the main path's most frequent shape — luma 16x16, U and V
-    8x8 with CfL, B=8 — under torch.profiler, device kernel time over
-    wall time."""
+    """The per-wave path's reading, kept beside the fused program's for
+    comparison: one wave of the main path's most frequent shape — luma
+    16x16, U and V 8x8 with CfL, B=8 — through decide_block_batch_dev
+    under torch.profiler, device kernel time over wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from svt_av1_tpu_torch.ops import quant as quant_ops
@@ -640,9 +799,10 @@ def phase_profile(torch, np) -> dict:
            "device_ops": kernels}
     share = "not measured" if res["device_busy_share"] is None \
         else f"{100 * res['device_busy_share']:.2f}%"
-    print(f"[profile] one wave (Y 16x16 + U/V 8x8, B={b}): wall "
-          f"{res['wall_ms']:.2f} ms, device busy {res['device_busy_ms']:.3f}"
-          f" ms ({share}), {kernels} device ops", flush=True)
+    print(f"[profile] per-wave path, one wave (Y 16x16 + U/V 8x8, B={b}): "
+          f"wall {res['wall_ms']:.2f} ms, device busy "
+          f"{res['device_busy_ms']:.3f} ms ({share}), {kernels} device ops",
+          flush=True)
     return res
 
 
@@ -704,6 +864,7 @@ def main() -> int:
     build = phase_build()
     grid = phase_kernels(torch, env["int32_ops_per_s"])
     slice_res, shapes = phase_slice(torch)
+    replay = slice_res.pop("replay")
     inter_res, inter_shapes, biggest = phase_inter(torch)
     by_path = {"all_intra": slice_res["launches"],
                "random_access": inter_res["launches"],
@@ -712,12 +873,14 @@ def main() -> int:
     shapes.update(inter_shapes)
     kernels = kernel_entries(torch, by_path, shapes, env["int32_ops_per_s"])
     group_prof = phase_group_profile(torch, biggest)
+    key_prof = phase_keyframe_profile(torch, replay)
     prof = phase_profile(torch, np)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"env": env, "build": build, "kernel_grid": grid,
                    "slice": slice_res, "inter": inter_res,
                    "kernels": kernels, "shape_group_profile": group_prof,
+                   "keyframe_program_profile": key_prof,
                    "wave_profile": prof}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])

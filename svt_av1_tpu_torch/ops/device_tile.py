@@ -1,6 +1,26 @@
-"""The intra-flip apply pass of inter frames on the torch device (the flip
-part of the JAX package's ``svt_av1_tpu/ops/device_tile.py``).
+"""Whole-tile wave programs on the torch device: the port of the JAX
+package's ``svt_av1_tpu/ops/device_tile.py``.
 
+**Fused keyframe tile programs.** A key frame's leaves are decided in
+coding-order dependency waves; one program runs every wave with the int32
+recon planes carried on the device, so no step waits for the host: the
+lane metadata (positions, availability, tile bounds, quantizer) is built
+on the host once per frame and uploaded once, each shape class runs its
+lanes of a wave in one step (``_class_stage``: luma, then U, whose CfL
+reads this wave's luma recon, then V forced to U's choice), and the
+decisions come back in one download after the last wave. With several
+tile columns the tiles' waves merge by index into one frame-batched
+program (``run_tiles_fused``): step w runs wave w of every tile, so the
+steps are the largest tile's wave count. Availability is tile-local and
+edge replication clamps at each lane's tile bounds, so no lane reads
+another tile's pixels. The JAX program pads waves to powers of two and
+lanes to buckets, with ``mode="drop"`` scatters for the padding; here
+the loop over waves is a plain Python loop over the real lanes, so
+nothing is padded and no integer changes. Leaves below 8 px have no
+fused program (the JAX package's gate): such tiles take the per-wave
+loop of ``pipeline/wavefront.py``.
+
+**The intra-flip apply pass** of inter frames.
 Blocks that the flip decision turned intra are recoded wave by wave in
 coding-order dependency waves, with true final edges: each wave reads the
 recon that the earlier waves wrote, so the prediction edges are exactly
@@ -14,9 +34,6 @@ so the JAX package's re-chunking of waves into steps of at most 8 lanes
 carried over. Per lane the integer
 math is that of ``inter._flip_apply_wave``: the luma full loop with the
 chosen mode, then the chroma choice between that mode and CfL.
-
-The JAX package's fused keyframe tile programs (the rest of that file)
-are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -25,6 +42,7 @@ import numpy as np
 import torch
 
 from svt_av1_tpu_torch.ops import device as dev
+from svt_av1_tpu_torch.ops import device_md as dmd
 from svt_av1_tpu_torch.ops.device import const, take2
 from svt_av1_tpu_torch.pipeline import common
 
@@ -97,6 +115,321 @@ def _scatter(plane, xs, ys, blocks, bw: int, bh: int) -> None:
     ix = xs[:, None, None] + torch.arange(bw, device=plane.device)[
         None, None, :]
     plane[iy, ix] = blocks.to(plane.dtype)
+
+
+# --- fused keyframe tile programs ---------------------------------------------
+# per-lane operands of a class step, uploaded once per frame
+LANE_KEYS = ("xs", "ys", "ha", "hl", "htr", "hbl", "mwv", "mhv", "qv",
+             "lamqv")
+_FLAGS = ("ha", "hl", "htr", "hbl")
+# per-lane decisions, stacked into one int64 row each for the download
+SMALL_KEYS = ("y_mode", "y_delta", "uv_mode", "uv_delta", "alpha_u",
+              "alpha_v", "y_tx_type", "eob_y", "eob_u", "eob_v")
+
+
+def _class_order(shapes) -> list:
+    """Class order inside a wave: descending area, then descending width
+    (the JAX programs' order; same-wave lanes are independent, so it
+    changes no integer, but it is kept)."""
+    return sorted(shapes, key=lambda s: (-s[0] * s[1], -s[0]))
+
+
+def _class_stage(shape: tuple, cands: tuple, bd: int, nfl: int,
+                 tx_search: bool, rdoq: bool = False):
+    """The step of one (bw, bh) shape class: the Y, U, V decide chain of
+    its lanes of one wave, writing their recon into the int32 planes in
+    place. Returns (small [10, B] int64 in SMALL_KEYS order, qc_y, qc_u,
+    qc_v)."""
+    bw, bh = shape
+    cw_, ch_ = bw >> 1, bh >> 1
+    cfl_ok = bw <= 32 and bh <= 32    # cfl_allowed (host wavefront rule)
+    ysz = bw if bw == bh else (bw, bh)
+    csz = cw_ if cw_ == ch_ else (cw_, ch_)
+    decide_y = dmd.make_decide_core(0, cands, ysz, bd, nfl, False, False,
+                                    False, tx_search, rdoq)
+    decide_u = dmd.make_decide_core(1, cands, csz, bd, nfl, False, False,
+                                    cfl_ok, False, rdoq)
+    decide_v = dmd.make_decide_core(2, cands, csz, bd, nfl, False, True,
+                                    cfl_ok, False, rdoq)
+
+    def step(recon, src, lanes):
+        xs, ys, ha, hl, htr, hbl, mwv, mhv, qv, lamqv = \
+            (lanes[k] for k in LANE_KEYS)
+        a1, l1 = _edges_j(recon[0], xs, ys, bw, bh, ha, hl, htr, hbl, bd,
+                          mwv, mhv)
+        srcs = _gather(src[0], xs, ys, bw, bh)
+        ym, yd, qcy, eoy, recy, _, _, ytt = decide_y(
+            srcs, a1, l1, ha, hl, None, qv, lamqv)
+        _scatter(recon[0], xs, ys, recy, bw, bh)
+        cxs, cys = xs >> 1, ys >> 1
+        # CfL reads this wave's luma recon: gathered after its scatter
+        cfl = _gather(recon[0], xs, ys, bw, bh) if cfl_ok else None
+        a1u, l1u = _edges_j(recon[1], cxs, cys, cw_, ch_, ha, hl, htr, hbl,
+                            bd, mwv >> 1, mhv >> 1)
+        um, ud, qcu, eou, recu, _, au, _ = decide_u(
+            _gather(src[1], cxs, cys, cw_, ch_), a1u, l1u, ha, hl, cfl, qv,
+            lamqv)
+        _scatter(recon[1], cxs, cys, recu, cw_, ch_)
+        a1v, l1v = _edges_j(recon[2], cxs, cys, cw_, ch_, ha, hl, htr, hbl,
+                            bd, mwv >> 1, mhv >> 1)
+        _, _, qcv, eov, recv, _, av, _ = decide_v(
+            _gather(src[2], cxs, cys, cw_, ch_), a1v, l1v, ha, hl, um, ud,
+            cfl, qv, lamqv)
+        _scatter(recon[2], cxs, cys, recv, cw_, ch_)
+        small = torch.stack([t.to(torch.int64) for t in
+                             (ym, yd, um, ud, au, av, ytt, eoy, eou, eov)])
+        return small, qcy, qcu, qcv
+
+    return step
+
+
+def make_mixed_tile_body(class_spec: tuple, n_waves: int, cands: tuple,
+                         bd: int, nfl: int, tx_search: bool,
+                         rdoq: bool = False):
+    """The wave loop over the classes ``class_spec`` ((bw, bh), ... in
+    their order inside a wave). The returned program takes the source
+    planes, the recon plane shapes, per class its lanes (tensors in wave
+    order) and the [start, end) lane range of every wave; it returns the
+    int32 recon planes, per class (small, qc_y, qc_u, qc_v) of its lanes
+    in lane order (the levels narrowed to int16), and the number of class
+    steps it ran. No operation inside the loop waits for the device."""
+    stages = [_class_stage(sh, cands, bd, nfl, tx_search, rdoq)
+              for sh in class_spec]
+
+    def program(src, shapes, lanes, ranges):
+        recon = [torch.zeros(s, dtype=torch.int32, device=src[0].device)
+                 for s in shapes]
+        outs = [[] for _ in stages]
+        for w in range(n_waves):
+            for ci, step in enumerate(stages):
+                s, e = ranges[ci][w]
+                if e > s:
+                    outs[ci].append(step(recon, src, {
+                        k: v[s:e] for k, v in lanes[ci].items()}))
+        res = []
+        for per in outs:
+            small = torch.cat([o[0] for o in per], dim=1)
+            res.append((small,) + tuple(
+                torch.cat([o[p] for o in per]).to(torch.int16)
+                for p in (1, 2, 3)))
+        return recon, res, sum(len(per) for per in outs)
+
+    return program
+
+
+def tile_lane_meta(enc, cands):
+    """Lane metadata of one tile for the fused programs, or None when the
+    tile has leaves below 8 px (the JAX package's gate; the per-wave loop
+    takes such tiles). Call with ``enc`` entered into the tile; captures
+    the tile's decision arrays for the injection. The JAX package also
+    declines a tile whose class holds more lanes in one wave than it has
+    block bands; that bound sizes its padded lane arrays, which the port
+    does not have, so it is not carried over."""
+    from svt_av1_tpu_torch.pipeline import avail
+    leaves = enc._leaves()
+    if not leaves or any(wh[0] < 8 or wh[1] < 8 for _, _, wh in leaves):
+        return None
+    waves = enc._dependency_waves(leaves, enc.mi_cols, enc.mi_rows)
+    larr = np.array([(r, c, wh[0], wh[1]) for r, c, wh in leaves],
+                    dtype=np.int64)
+    classes = {}
+    for sh in {tuple(wh) for _, _, wh in leaves}:
+        li = np.nonzero((larr[:, 2] == sh[0]) & (larr[:, 3] == sh[1]))[0]
+        rs, cs = larr[li, 0], larr[li, 1]
+        w4, h4 = sh[0] >> 2, sh[1] >> 2
+        vab = avail.leaf_vert_ab_flags(enc.leaf_sizes, rs, cs, w4, h4,
+                                       enc.mi_rows, enc.mi_cols)
+        classes[sh] = dict(
+            wave=waves[li], r=rs, c=cs, li=li,
+            htr=avail.has_top_right_wh_vec(rs, cs, w4, h4, enc.mi_cols,
+                                           vert_ab=vab),
+            hbl=avail.has_bottom_left_wh_vec(rs, cs, w4, h4, enc.mi_rows,
+                                             vert_ab=vab))
+    arrays = {k: getattr(enc, k) for k in
+              ("y_mode", "y_delta", "uv_mode", "uv_delta", "alpha_u",
+               "alpha_v", "y_tx_type", "eobs", "qcoeff")}
+    return dict(rect=enc._cur_rect, n_waves=int(waves.max()) + 1,
+                classes=classes, arrays=arrays)
+
+
+def _lanes_of(metas, shapes_u, qindex: int, lamq: int, device):
+    """Per class: the lanes of every tile packed tile after tile (the
+    JAX package's contiguous ``idxw`` packing, entry base ``j0`` per
+    tile), then ordered by wave (stable) for the loop. Frame-global
+    positions, tile-local availability, each lane's tile right/bottom
+    bound. One upload for all classes. Returns (lanes, ranges, places,
+    positions): places [(meta, tile leaf ids, j0)], positions[j] the
+    loop-order lane of packed entry j."""
+    n_waves = max(m["n_waves"] for m in metas)
+    rows, ranges, places, positions, sizes = [], [], [], [], []
+    for sh in shapes_u:
+        cols, place, j = [], [], 0
+        for m in metas:
+            ent = m["classes"].get(sh)
+            if ent is None:
+                continue
+            mi_r0, mi_c0, mi_rs, mi_cs = m["rect"][:4]
+            y0, x0 = mi_r0 * 4, mi_c0 * 4
+            n = len(ent["li"])
+            cols.append(np.stack([
+                ent["wave"], x0 + ent["c"] * 4, y0 + ent["r"] * 4,
+                ent["r"] > 0, ent["c"] > 0, ent["htr"], ent["hbl"],
+                np.full(n, x0 + mi_cs * 4), np.full(n, y0 + mi_rs * 4),
+                np.full(n, qindex), np.full(n, lamq)]).astype(np.int64))
+            place.append((m, ent["li"], j))
+            j += n
+        host = np.concatenate(cols, axis=1)
+        order = np.argsort(host[0], kind="stable")
+        pos = np.empty(j, np.int64)
+        pos[order] = np.arange(j)
+        rows.append(host[1:, order])
+        bounds = np.searchsorted(host[0, order], np.arange(n_waves + 1))
+        ranges.append([(int(bounds[w]), int(bounds[w + 1]))
+                       for w in range(n_waves)])
+        places.append(place)
+        positions.append(pos)
+        sizes.append(j)
+    packed = const(np.concatenate(rows, axis=1), device)
+    lanes, off = [], 0
+    for n in sizes:
+        part = packed[:, off:off + n]
+        off += n
+        lane = {}
+        for i, k in enumerate(LANE_KEYS):
+            if k in _FLAGS:
+                lane[k] = part[i] != 0
+            elif k == "qv":
+                lane[k] = part[i].to(torch.int32)
+            else:
+                lane[k] = part[i].contiguous()
+        lanes.append(lane)
+    return lanes, ranges, places, positions
+
+
+def _run_program(enc, metas, src_planes, shapes, cands):
+    """Upload, run the wave loop over every meta's lanes, download the
+    decisions and inject them (coefficients as PendingQC markers).
+    ``src_planes``: the host planes the metas' rects index. Returns the
+    int32 recon planes on the device."""
+    from svt_av1_tpu_torch.pipeline import md as md_mod
+    cfg = enc.cfg
+    device = torch.device(cfg.device)
+    pdt = dev.pix_dtype(cfg.bit_depth)
+    n_waves = max(m["n_waves"] for m in metas)
+    shapes_u = _class_order({sh for m in metas for sh in m["classes"]})
+    lanes, ranges, places, positions = _lanes_of(
+        metas, shapes_u, int(enc.qp.qindex), md_mod.lam_to_q(enc.lam),
+        device)
+    src = [const(np.asarray(p), device).to(pdt) for p in src_planes]
+    prog = make_mixed_tile_body(
+        tuple(shapes_u), n_waves, tuple(map(tuple, cands)), cfg.bit_depth,
+        cfg.nfl, bool(cfg.enable_tx_type_search and cfg.base_q_idx > 0),
+        bool(cfg.enable_rdoq))
+    recon, outs, steps = prog(src, shapes, lanes, ranges)
+    enc.fused_stats = dict(tiles=len(metas), wave_steps=n_waves,
+                           class_steps=steps, classes=len(shapes_u),
+                           lanes=int(sum(len(p) for p in positions)))
+    inject_results(places, positions, outs)
+    return recon
+
+
+def inject_results(places, positions, outs) -> None:
+    """Write the program's outputs back into each tile's decision arrays:
+    the small decisions through one download, the coefficients as
+    ``(PendingQC, lane)`` markers (one pinned async copy per class and
+    plane, started before that download so the two overlap; the entropy
+    worker resolves them)."""
+    from svt_av1_tpu_torch.pipeline.common import PendingQC
+    pending = [[PendingQC(q) for q in out[1:]] for out in outs]
+    small = torch.cat([o[0] for o in outs], dim=1).cpu().numpy()
+    off = 0
+    for place, pos, pends in zip(places, positions, pending):
+        for m, ids, j0 in place:
+            a = m["arrays"]
+            lane = pos[j0:j0 + len(ids)]
+            vals = dict(zip(SMALL_KEYS, small[:, off + lane]))
+            for k in ("y_mode", "y_delta", "uv_mode", "uv_delta", "alpha_u",
+                      "alpha_v", "y_tx_type"):
+                a[k][ids] = vals[k]
+            for p, k in enumerate(("eob_y", "eob_u", "eob_v")):
+                a["eobs"][p, ids] = vals[k]
+            for li, ln in zip(ids.tolist(), lane.tolist()):
+                for p in range(3):
+                    a["qcoeff"][p][li] = (pends[p], ln)
+        off += len(pos)
+
+
+def _run_single(enc, meta, cands) -> None:
+    """One tile's program on the tile's own planes (tile-local rect). On
+    a one-tile frame the recon stays on the device (``dev.pix_dtype``
+    planes replace ``enc.recon``), else it lands in the host views."""
+    meta = dict(meta, rect=(0, 0, enc.mi_rows, enc.mi_cols))
+    recon = _run_program(enc, [meta], enc.src,
+                         [tuple(p.shape) for p in enc.recon], cands)
+    pdt = dev.pix_dtype(enc.cfg.bit_depth)
+    if getattr(enc, "_tile_count", 1) == 1:
+        enc.recon = [p.to(pdt) for p in recon]
+        return
+    for dst, t in zip(enc.recon, recon):
+        dst[...] = t.cpu().numpy().astype(dst.dtype)
+
+
+def tile_metadata(enc, cands):
+    """Lane metadata for the uniform-leaf program, or None when the tile's
+    leaves are not all one square size of at least 8 px. The JAX
+    package's uniform program (``make_tile_body``) computes the same
+    integers as its class step on such a tile (one class, the same decide
+    cores, CfL at S <= 32, the same clamps), so the port runs both entry
+    points through the one class-step program."""
+    sizes = set(enc.leaf_sizes.values())
+    if len(sizes) != 1:
+        return None
+    s = sizes.pop()
+    if not isinstance(s, (int, np.integer)) or s < 8:
+        return None
+    return tile_lane_meta(enc, cands)
+
+
+def analyze_tile_fused(enc, cands) -> bool:
+    """The fused program for a tile of uniform square leaves: fills the
+    tile's decisions and recon; False when the tile is not uniform."""
+    meta = tile_metadata(enc, cands)
+    if meta is None:
+        return False
+    _run_single(enc, meta, cands)
+    return True
+
+
+def analyze_tile_fused_mixed(enc, cands) -> bool:
+    """The fused program for a tile of mixed leaf shapes (squares and
+    rects); False for leaves below 8 px. The JAX package's
+    ``mixed_tile_metadata`` gate is ``tile_lane_meta``'s."""
+    meta = tile_lane_meta(enc, cands)
+    if meta is None:
+        return False
+    _run_single(enc, meta, cands)
+    return True
+
+
+def run_tiles_fused(enc, metas, frame_src, frame_recon, cands):
+    """ONE program over every deferred tile's lanes of the frame: step w
+    runs wave w of every tile. Injects the decisions into each tile's
+    arrays. Returns the frame recon planes: on the device in
+    ``dev.pix_dtype`` when every tile deferred, else the host planes with
+    the deferred tiles' regions copied in."""
+    recon = _run_program(enc, metas, frame_src,
+                         [tuple(p.shape) for p in frame_recon], cands)
+    if len(metas) == enc._tile_count:
+        pdt = dev.pix_dtype(enc.cfg.bit_depth)
+        return [p.to(pdt) for p in recon]
+    host = [t.cpu().numpy() for t in recon]
+    for m in metas:             # copy only the deferred tiles' pixels
+        mi_r0, mi_c0, mi_rs, mi_cs = m["rect"][:4]
+        for p, ss in ((0, 0), (1, 1), (2, 1)):
+            ys = slice((mi_r0 * 4) >> ss, ((mi_r0 + mi_rs) * 4) >> ss)
+            xs = slice((mi_c0 * 4) >> ss, ((mi_c0 + mi_cs) * 4) >> ss)
+            frame_recon[p][ys, xs] = host[p][ys, xs]
+    return frame_recon
 
 
 def _flip_stage(shape: tuple, bd: int, rdoq: bool = False):

@@ -1,21 +1,26 @@
 """Wavefront-batched intra encoder: the keyframe encode pass of the port.
 
-The port of the JAX package's ``pipeline/wavefront.py`` on its per-wave
-path. Blocks on each anti-diagonal have no mutual prediction dependencies,
-so every wave is one batched step (mode decision + transform + quant +
-recon for all blocks of the diagonal at once) on the torch device,
-followed by a separate sequential syntax pass (entropy stage) that emits
-the decisions through the native range coder.
+The port of the JAX package's ``pipeline/wavefront.py`` with its device
+backend. Blocks on each anti-diagonal have no mutual prediction
+dependencies, so every wave is one batched step (mode decision + transform
++ quant + recon for all blocks of the diagonal at once) on the torch
+device, followed by a separate sequential syntax pass (entropy stage) that
+emits the decisions through the native range coder.
 
-Per wave, the prediction edges are prepared on the host from the numpy
-recon, each plane's wave goes to the device and its decisions and recon
-come back. The JAX package's fused whole-tile programs
-(``ops/device_tile.py``) are a later slice of the port.
+Key frames take the fused tile programs (``ops/device_tile.py``) wherever
+the JAX package's device backend takes them: with several tiles every
+tile defers into one frame-batched program and the recon stays on the
+device through deblocking into the reference slots; a single tile runs
+its own program. A tile with leaves below 8 px takes the per-wave loop
+(``_wave_loop``): per wave and leaf shape the prediction edges are
+prepared on the host from the numpy recon, each plane's wave goes to the
+device and its decisions and recon come back.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from svt_av1_tpu_torch.bitstream import obu
 from svt_av1_tpu_torch.config import EncoderConfig
@@ -25,6 +30,7 @@ from svt_av1_tpu_torch.entropy.cdf import FrameContext
 from svt_av1_tpu_torch.entropy.ctx import TileContexts
 from svt_av1_tpu_torch.ops import intra as intra_ops
 from svt_av1_tpu_torch.ops import intra_dir
+from svt_av1_tpu_torch.ops import device_tile
 from svt_av1_tpu_torch.ops import quant as quant_ops
 from svt_av1_tpu_torch.ops.device import dlf_search_apply_dev
 from svt_av1_tpu_torch.ops.device_md import decide_block_batch_dev
@@ -60,6 +66,12 @@ class WavefrontIntraEncoder:
         self.qp = quant_ops.make_quant_params(cfg.base_q_idx,
                                               bit_depth=cfg.bit_depth)
         self.lam = rd.rd_lambda(cfg.base_q_idx, cfg.bit_depth)
+        # the fused tile programs take key frames unless the intra edge
+        # filter can engage (the JAX gate; the port's config refuses such
+        # configs, so this holds wherever the port runs)
+        self._fused = not common.edge_filter_active(cfg)
+        self._tile_count = 1
+        self._defer_tiles = None
 
     # --- batched wave compute on the torch device ------------------------------
     def _wave_compute(self, plane: int, xs, ys, size, cands, htr, hbl,
@@ -178,6 +190,11 @@ class WavefrontIntraEncoder:
                                   *self.tile_log2)
         tile_states = []
         frame_leaves = {}
+        self._tile_count = len(rects)
+        # several tiles: each tile's analysis defers into one frame-batched
+        # program whose step w runs wave w of every tile (the JAX gate; the
+        # port's config refuses AQ, so there is no qmap)
+        self._defer_tiles = [] if self._fused and len(rects) > 1 else None
         for rect in rects:
             mi_r0, mi_c0 = rect[0], rect[1]
             self._enter_tile(frame_src, frame_recon, rect)
@@ -191,6 +208,14 @@ class WavefrontIntraEncoder:
             tile_states.append(st)
             for (r, c), s in self.leaf_sizes.items():
                 frame_leaves[(r + mi_r0, c + mi_c0)] = s
+        if self._defer_tiles:
+            with span("intra_tiles_fused", tiles=len(self._defer_tiles)):
+                frame_recon = device_tile.run_tiles_fused(
+                    self, self._defer_tiles, frame_src, frame_recon,
+                    common.intra_candidates(cfg))
+        self._defer_tiles = None
+        if len(rects) == 1 and isinstance(self.recon[0], torch.Tensor):
+            frame_recon = self.recon    # the tile's program kept it there
 
         self.mi_rows, self.mi_cols = frame_mi_rows, frame_mi_cols
         self.leaf_sizes = frame_leaves
@@ -201,6 +226,7 @@ class WavefrontIntraEncoder:
         return recon
 
     def _enter_tile(self, frame_src, frame_recon, rect) -> None:
+        self._cur_rect = rect
         mi_r0, mi_c0, mi_rs, mi_cs, sb_rs, sb_cs = rect
         y0, x0 = mi_r0 * 4, mi_c0 * 4
         ph, pw = sb_rs * 64, sb_cs * 64
@@ -218,8 +244,9 @@ class WavefrontIntraEncoder:
         self.sb_rows_t, self.sb_cols_t = sb_rs, sb_cs
 
     def _analyze_tile(self) -> None:
-        """Leaf map (partition DP or fixed grid), then the dependency-wave
-        loop: per wave and leaf shape, one device decide per plane."""
+        """Leaf map (partition DP or fixed grid), then the tile's waves:
+        deferred into the frame program, or its own fused program, or
+        (leaves below 8 px) the per-wave loop."""
         cfg = self.cfg
         self.max_wh = [(self.mi_cols * 4, self.mi_rows * 4),
                        (self.mi_cols * 2, self.mi_rows * 2),
@@ -235,7 +262,6 @@ class WavefrontIntraEncoder:
                                dtype=common.pixel_dtype(cfg.bit_depth)),
                     cfg, self.mi_cols, self.mi_rows)
         leaves = self._leaves()
-        waves = self._dependency_waves(leaves, self.mi_cols, self.mi_rows)
         n = len(leaves)
         self.leaf_index = {(r, c): i for i, (r, c, s) in enumerate(leaves)}
         self.y_mode = np.zeros(n, dtype=np.int32)
@@ -248,6 +274,25 @@ class WavefrontIntraEncoder:
         self.eobs = np.zeros((3, n), dtype=np.int32)
         self.y_tx_type = np.zeros(n, dtype=np.int32)
 
+        if self._fused:
+            if self._defer_tiles is not None:
+                meta = device_tile.tile_lane_meta(self, cands)
+                if meta is not None:
+                    self._defer_tiles.append(meta)
+                    return
+            with span("intra_tile_fused"):
+                if device_tile.analyze_tile_fused(self, cands):
+                    return
+                if device_tile.analyze_tile_fused_mixed(self, cands):
+                    return
+        with span("waves"):
+            self._wave_loop(leaves, cands)
+
+    def _wave_loop(self, leaves, cands) -> None:
+        """The per-wave loop: per wave and leaf shape, one device decide
+        per plane on host-prepared edges."""
+        waves = self._dependency_waves(leaves, self.mi_cols, self.mi_rows)
+        n = len(leaves)
         larr = np.array([(r, c, wh[0], wh[1]) for r, c, wh in leaves],
                         dtype=np.int64)
         vab_all = [avail.leaf_vert_ab(
@@ -260,13 +305,12 @@ class WavefrontIntraEncoder:
             r, c, wh[0] >> 2, wh[1] >> 2, self.mi_rows, vert_ab=vab)
             for (r, c, wh), vab in zip(leaves, vab_all)])
         shape_key = larr[:, 2] * 1000 + larr[:, 3]
-        with span("waves"):
-            for wv in range(int(waves.max()) + 1 if n else 0):
-                in_wave = np.nonzero(waves == wv)[0]
-                for sk in np.unique(shape_key[in_wave]):
-                    ids = in_wave[shape_key[in_wave] == sk]
-                    self._code_wave(ids, int(sk) // 1000, int(sk) % 1000,
-                                    larr, htr_all, hbl_all, cands)
+        for wv in range(int(waves.max()) + 1 if n else 0):
+            in_wave = np.nonzero(waves == wv)[0]
+            for sk in np.unique(shape_key[in_wave]):
+                ids = in_wave[shape_key[in_wave] == sk]
+                self._code_wave(ids, int(sk) // 1000, int(sk) % 1000,
+                                larr, htr_all, hbl_all, cands)
 
     def _code_wave(self, ids, bw, bh, larr, htr_all, hbl_all, cands):
         """Decide and code the leaves ``ids`` of one wave (all bw x bh):
@@ -458,7 +502,8 @@ class WavefrontIntraEncoder:
                 continue
             skip_ctx, sign_ctx = self.ctxs.txb_ctx(p, pb, ts, x4, y4)
             cul = coeff_syntax.write_coeffs_txb(
-                self.w, self.fc, self.qcoeff[p][li], ts, tt,
+                self.w, self.fc, common.resolve_qc(self.qcoeff[p][li]),
+                ts, tt,
                 plane_type=int(p > 0), txb_skip_ctx=skip_ctx,
                 dc_sign_ctx=sign_ctx, intra_dir=m,
                 base_qindex=cfg.base_q_idx)

@@ -10,6 +10,8 @@ JAX:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -198,6 +200,105 @@ def test_rdoq_first_minimum_on_card(cuda):
         assert outs[0][2][rows].tolist() == [0] * len(rows)
         for g, w in zip(*outs):
             assert torch.equal(g, w)
+
+
+def test_fused_frame_program_on_card_equals_cpu(cuda):
+    """The frame-batched keyframe program (4 tile columns at 448x128) on
+    cuda equals it on the CPU: every tile's decisions, eobs and
+    coefficients, and the recon planes."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import device_tile as tdt
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    from tests.torch_tile_cases import assert_same_state, keyframe_state
+    frame = make_clip(w=448, h=128, frames=1, seed=3)[0]
+    runs = []
+    orig = tdt.run_tiles_fused
+
+    def spy(enc, metas, *a):
+        runs.append(len(metas))
+        return orig(enc, metas, *a)
+
+    tdt.run_tiles_fused = spy
+    try:
+        got, want = (keyframe_state(frame, dataclasses.replace(
+            preset_config(width=448, height=128, preset=5, intra_period=0,
+                          tile_columns=2, device=d), enable_dlf=False))
+            for d in ("cuda", "cpu"))
+    finally:
+        tdt.run_tiles_fused = orig
+    assert runs == [4, 4]
+    assert_same_state(got, want)
+
+
+def test_fused_wave_loop_never_syncs(cuda):
+    """The fused program's wave loop runs under
+    torch.cuda.set_sync_debug_mode("error"): no operation inside it waits
+    for the card (a first run fills the constant caches)."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import device_tile as tdt
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    from tests.torch_tile_cases import keyframe_state
+    frame = make_clip(w=448, h=128, frames=1, seed=3)[0]
+    cfg = preset_config(width=448, height=128, preset=5, intra_period=0,
+                        tile_columns=2, device="cuda")
+    keyframe_state(frame, cfg)
+    orig = tdt.make_mixed_tile_body
+    ran = []
+
+    def checked(*a, **k):
+        prog = orig(*a, **k)
+
+        def run(*pa):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = prog(*pa)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            ran.append(out[2])
+            return out
+        return run
+
+    tdt.make_mixed_tile_body = checked
+    try:
+        keyframe_state(frame, cfg)
+    finally:
+        tdt.make_mixed_tile_body = orig
+    assert len(ran) == 1 and ran[0] > 0
+
+
+def test_all_intra_fused_encode_on_card_equals_cpu(cuda):
+    """2 frames of all-intra at 448x128 with 4 tile columns: each key
+    frame through the frame program on the card, never the per-wave
+    loop; the stream equals the CPU's."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import device_tile as tdt
+    from svt_av1_tpu_torch.pipeline import wavefront as twf
+    from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=128, frames=2, seed=3)
+    calls = []
+    spied = [(tdt, "run_tiles_fused"),
+             (twf.WavefrontIntraEncoder, "_code_wave")]
+    saved = [getattr(o, n) for o, n in spied]
+
+    def spy(name, fn):
+        def call(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return call
+
+    for (o, n), fn in zip(spied, saved):
+        setattr(o, n, spy(n, fn))
+    try:
+        ivf = {d: encode_ivf(frames, preset_config(
+            width=448, height=128, preset=5, intra_period=0,
+            tile_columns=2, device=d)) for d in ("cuda", "cpu")}
+    finally:
+        for (o, n), fn in zip(spied, saved):
+            setattr(o, n, fn)
+    assert calls == ["run_tiles_fused"] * 4
+    assert ivf["cuda"] == ivf["cpu"]
 
 
 def test_encode_on_card_equals_cpu(cuda):
