@@ -11,13 +11,14 @@ Phases, in order; any failure exits non-zero (no phase is caught):
 2. build: every hand-written CUDA kernel from the checkout's sources,
    and, as a diagnostic, the integer SASS instructions of each kernel
    instantiation (``cuobjdump -sass``);
-3. the quantization kernel in both modes — quantize-only
-   (``quantize_qv``) and fused quantize + RDOQ-lite trim + rate
-   (``quant_stage_j``) — against its plain PyTorch versions on the card,
-   exact, over row lengths, log_scales, plane types, RDOQ on/off and
-   batch sizes, and at the most rows a 1080p shape group can give it
-   (B = 16320 rows of n = 256 and of n = 64), with times beside the
-   bound;
+3. the quantization kernel in its three modes — quantize-only
+   (``quantize_qv``), fused quantize + rate and quantize + RDOQ-lite trim
+   + rate (``quant_stage_j``) — against its plain PyTorch versions on the
+   card, exact, over every row length the full loop makes (16 to 1024,
+   the rectangles' 32, 128 and 512 included), log_scales, plane types,
+   RDOQ on/off, batch sizes and bit depths 8 and 10, and at the most rows
+   a 1080p shape group can give it (B = 16320 rows of n = 256 and of
+   n = 64), with times beside the bound;
 4. the first slice's main path through the user entry point: a
    1920x1080 8-bit all-intra stream (preset 5, qp 40) through
    ``encode_ivf`` on ``cuda``, whose sha256 must equal the JAX package's
@@ -39,16 +40,25 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    per frame of the key frame and of the inter frames, the stage spans,
    the flipped blocks, the kernel's launches and shapes inside the inter
    frames, and the largest shape group under torch.profiler;
-6. each mode timed at the heaviest shape both encodes gave the fused
-   kernel; one whole fused key frame program (the all-intra clip's last
-   key frame, replayed plain for its wall and under torch.profiler for
-   its device busy time and device operations), and beside it the
-   per-wave path's old reading, one wave through
-   ``decide_block_batch_dev``;
-7. a ``{"kernels": [...]}`` line (``launches``: the sum over both
-   encodes; ``launches_by_path``: each encode's own count, and the RA
-   encode's inside its inter frames), the card's line, and last the
-   device line.
+6. ``[directional]``, preset 2 (the CLI default): one 1920x1080 key
+   frame through ``encode_ivf`` on ``cuda``, all 13 intra modes with the
+   normative intra edge filter, so the key frame runs the per-wave loop
+   (``_code_wave``) with per-lane filt_type and never the frame program;
+   its sha256 must equal the JAX package's (``GOLDEN_DIR_*``), and the
+   edge-filtered predictor and the fused kernel must have run; the key
+   frame's time, the spans, the wave and (wave, shape) counts and the
+   kernel's launches by mode and row length are printed;
+7. each mode and row length timed at the heaviest shape the three
+   encodes gave it; one whole fused key frame program (the all-intra
+   clip's last key frame, replayed plain for its wall and under
+   torch.profiler for its device busy time and device operations),
+   beside it one wave of the per-wave path through
+   ``decide_block_batch_dev``, and one (step, shape) group of the
+   directional key frame replayed under torch.profiler;
+8. a ``{"kernels": [...]}`` line, one entry per mode and row length
+   (``launches``: the sum over the three encodes; ``launches_by_path``:
+   each encode's own count, and the RA encode's inside its inter frames),
+   the card's line, and last the device line.
 
 Needs one CUDA device; without one it exits 2 and prints no result.
 Details (per-shape times, stage spans, ptxas report) go to
@@ -83,6 +93,13 @@ GOLDEN_RA_SHA256 = \
     "3f3f8896fd6341d88d0ab7231ee84b994c93834f2e6a7a808da2e634457e07a4"
 GOLDEN_RA_BYTES = 415319
 RA_FRAMES, RA_LEVELS = 9, 3
+# the JAX package's stream of the directional preset: encode_ivf(backend=
+# "host") on make_clip(1920, 1080, frames=1, seed=3), preset 2, qp 40,
+# intra_period 0 (4 tile columns by width)
+GOLDEN_DIR_SHA256 = \
+    "29f15e2d04c26721ee4d6eed4a574dad929aa8ee31f26845bbad07badeb6de69"
+GOLDEN_DIR_BYTES = 372813
+DIR_PRESET = 2
 # synthetic large-batch checks at the most rows a 1080p shape group can
 # give the quantization stage: the [2B] single-ref pair of 8160 16x16 luma
 # blocks (n = 256) and U+V of their 8x8 chroma. The RA clip's partition DP
@@ -192,9 +209,10 @@ def sass_counts(lib: Path) -> dict:
             counts[cur][0] += m[1] in SASS_ALU
             counts[cur][1] += m[1] in SASS_IMAD
             counts[cur][2] += 1
-    if len(counts) != 12:
-        raise SystemExit(f"expected 12 kernel instantiations in the SASS, "
-                         f"found {sorted(counts)}")
+    want = 3 * len(_row_lengths())
+    if len(counts) != want:
+        raise SystemExit(f"expected {want} kernel instantiations in the "
+                         f"SASS, found {sorted(counts)}")
     return counts
 
 
@@ -261,6 +279,11 @@ def _time_ms(torch, fn, reps: int = 10, trials: int = 21):
     return statistics.median(dev), host_ms
 
 
+def _row_lengths() -> tuple:
+    from svt_av1_tpu_torch.ops import device as dev
+    return dev.ROW_LENGTHS
+
+
 def _stage_inputs(torch, n: int, ls: int, b: int, seed: int):
     """b rows of the quantization-stage check batch (the tail of a batch
     with every special row when b is small: all-zero, +-2^20, +-32767,
@@ -278,20 +301,21 @@ def _modes() -> dict:
     return {name: mode for mode, name in dev.MODE_NAMES.items()}
 
 
-def _mode_fns(mode: str, c, q, lm, scan, tx, ls, plane_type=0):
+def _mode_fns(mode: str, c, q, lm, scan, tx, ls, plane_type=0, bd=8):
     """(kernel call, plain call) of one kernel mode on these inputs."""
     from svt_av1_tpu_torch.ops import device as dev
     from svt_av1_tpu_torch.ops import device_md as tmd
     if mode == "quantize_qv":
-        return (lambda: dev.quantize_qv(c, scan, q, ls, 8),
-                lambda: dev.quantize_qv_plain(c, scan, q, ls, 8))
+        return (lambda: dev.quantize_qv(c, scan, q, ls, bd),
+                lambda: dev.quantize_qv_plain(c, scan, q, ls, bd))
     rl = lm if mode == "quant_stage_rdoq" else None
-    return (lambda: tmd.quant_stage_j(c, scan, q, ls, 8, tx, plane_type, rl),
-            lambda: tmd.quant_stage_plain(c, scan, q, ls, 8, tx, plane_type,
-                                          rl))
+    return (lambda: tmd.quant_stage_j(c, scan, q, ls, bd, tx, plane_type,
+                                      rl),
+            lambda: tmd.quant_stage_plain(c, scan, q, ls, bd, tx,
+                                          plane_type, rl))
 
 
-def _bound(mode: str, c, q, scan, ls: int, int32_ops: float):
+def _bound(mode: str, c, q, scan, ls: int, int32_ops: float, bd: int = 8):
     """(bound ms, "bytes" or "operations", (INT32, IMAD) instructions) of
     one call on these inputs. Bytes: 4 B read and 8 B written per
     coefficient; per row the qindex in and the eob out, plus the rate
@@ -310,7 +334,7 @@ def _bound(mode: str, c, q, scan, ls: int, int32_ops: float):
         alu += b * n * OPS_RATE[0]
         imad += b * n * OPS_RATE[1]
     if trim:
-        eob = dev.quantize_qv_plain(c, scan, q, ls, 8)[2].long()
+        eob = dev.quantize_qv_plain(c, scan, q, ls, bd)[2].long()
         positions = int(((eob + 1) * (q > 0)).sum())
         alu += positions * OPS_TRIM[0]
         imad += positions * OPS_TRIM[1]
@@ -320,8 +344,9 @@ def _bound(mode: str, c, q, scan, ls: int, int32_ops: float):
         "bytes" if t_bytes >= t_ops else "operations", (alu, imad)
 
 
-def _check(torch, mode, c, q, lm, scan, tx, ls, plane_type=0) -> dict:
-    kern, plain = _mode_fns(mode, c, q, lm, scan, tx, ls, plane_type)
+def _check(torch, mode, c, q, lm, scan, tx, ls, plane_type=0,
+           bd=8) -> dict:
+    kern, plain = _mode_fns(mode, c, q, lm, scan, tx, ls, plane_type, bd)
     got, want = kern(), plain()
     torch.cuda.synchronize()
     err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
@@ -329,38 +354,45 @@ def _check(torch, mode, c, q, lm, scan, tx, ls, plane_type=0) -> dict:
     exact = all(g.dtype == w.dtype and torch.equal(g, w)
                 for g, w in zip(got, want))
     return {"mode": mode, "B": len(q), "n": c.shape[1], "log_scale": ls,
-            "plane_type": plane_type, "exact": exact, "max_abs_err": err}
+            "plane_type": plane_type, "bd": bd, "exact": exact,
+            "max_abs_err": err}
 
 
 def _timed(torch, row, mode, c, q, lm, scan, tx, ls, int32_ops,
-           plane_type=0) -> dict:
-    kern, plain = _mode_fns(mode, c, q, lm, scan, tx, ls, plane_type)
+           plane_type=0, bd=8) -> dict:
+    kern, plain = _mode_fns(mode, c, q, lm, scan, tx, ls, plane_type, bd)
     row["ms"], row["call_ms"] = _time_ms(torch, kern)
     row["plain_ms"], row["plain_call_ms"] = _time_ms(torch, plain)
     row["bound_ms"], row["bound_by"], row["int_instr"] = _bound(
-        mode, c, q, scan, ls, int32_ops)
+        mode, c, q, scan, ls, int32_ops, bd)
     return row
 
 
 def phase_kernels(torch, int32_ops: float) -> list:
     """Every (n, log_scale, B) of the check grid, each kernel mode (the
-    fused ones with plane type 0 and 1) against its plain version, exact;
-    each mode timed at B=8 (a typical wave), B=8160 (a 1080p frame's
-    16x16 blocks) and the inter path's B=16320 batches."""
+    fused ones with plane type 0 and 1) against its plain version, exact,
+    at bit depths 8 and 10; each mode timed at B=8 (a typical wave) and
+    B=8160 (a 1080p frame's 16x16 blocks) at 8 bits, at B=8160 and
+    log_scale 0 at 10 bits, and at the inter path's B=16320 batches."""
     rows = []
-    for n in (16, 64, 256, 1024):
-        for ls in (0, 1, 2):
-            for b in (1, 8, 37, 8160):
-                ins = _stage_inputs(torch, n, ls, b, seed=n * 7 + ls * 3 + b)
-                for mode in _modes():
-                    for pt in ((0,) if mode == "quantize_qv" else (0, 1)):
-                        row = _check(torch, mode, *ins, ls, pt)
-                        if not row["exact"]:
-                            raise SystemExit(f"{mode} kernel != plain at "
-                                             f"{row}")
-                        if b in (8, 8160) and pt == 0:
-                            _timed(torch, row, mode, *ins, ls, int32_ops)
-                        rows.append(row)
+    for bd in (8, 10):
+        for n in _row_lengths():
+            for ls in (0, 1, 2):
+                for b in (1, 8, 37, 8160):
+                    ins = _stage_inputs(torch, n, ls, b,
+                                        seed=n * 7 + ls * 3 + b + bd)
+                    for mode in _modes():
+                        for pt in ((0,) if mode == "quantize_qv"
+                                   else (0, 1)):
+                            row = _check(torch, mode, *ins, ls, pt, bd)
+                            if not row["exact"]:
+                                raise SystemExit(f"{mode} kernel != plain "
+                                                 f"at {row}")
+                            if pt == 0 and ((bd == 8 and b in (8, 8160)) or
+                                            (b == 8160 and ls == 0)):
+                                _timed(torch, row, mode, *ins, ls,
+                                       int32_ops, bd=bd)
+                            rows.append(row)
     for n, b in INTER_BATCHES:
         ins = _stage_inputs(torch, n, 0, b, seed=n + b)
         for mode in _modes():
@@ -374,15 +406,16 @@ def phase_kernels(torch, int32_ops: float) -> list:
     for r in rows:
         if "ms" in r:
             print(f"[kernel] {r['mode']} B={r['B']} n={r['n']} "
-                  f"ls={r['log_scale']}: {r['ms']:.5f} ms (call "
-                  f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms "
-                  f"(call {r['plain_call_ms']:.4f} ms), bound "
-                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}; "
+                  f"ls={r['log_scale']} bd={r['bd']}: {r['ms']:.5f} ms "
+                  f"(call {r['call_ms']:.4f} ms), plain "
+                  f"{r['plain_ms']:.4f} ms (call {r['plain_call_ms']:.4f} "
+                  f"ms), bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
                   f"{r['int_instr'][0]} INT32 + {r['int_instr'][1]} IMAD "
                   f"instr), {100 * r['bound_ms'] / r['ms']:.0f}% of bound",
                   flush=True)
     print(f"[kernel] quant_stage_kernel exact in every mode at all "
-          f"{len(rows)} checks", flush=True)
+          f"{len(rows)} checks (row lengths {list(_row_lengths())}, bit "
+          f"depths 8 and 10)", flush=True)
     return rows
 
 
@@ -390,12 +423,13 @@ def _keyframe_spies(keys):
     """Spies on the key frames' paths, recording into ``keys``: per key
     frame the fused frame program's tiles, steps and kernel launches
     (mode, B, n, log_scale) inside it and inside the whole key frame
-    compute, the per-wave loop's calls, and the last frame program's
-    arguments for the profiled replay."""
+    compute, the per-wave loop's tiles, waves and (wave, shape) calls,
+    and the last frame program's arguments for the profiled replay."""
     from svt_av1_tpu_torch.ops import device as dev
     from svt_av1_tpu_torch.ops import device_tile as tdt
     from svt_av1_tpu_torch.pipeline import wavefront as twf
-    keys.update(frames=[], code_wave=0)
+    keys.update(frames=[], code_wave=0, wave_tiles=0, wave_steps=0,
+                waves=0, groups=[])
 
     def launches_in(fn, into):
         before = collections.Counter(dev.LAUNCH_SHAPES)
@@ -422,13 +456,31 @@ def _keyframe_spies(keys):
         return call
 
     def wave_spy(fn):
-        def call(*a, **k):
+        """Counts the per-wave loop's (step, shape) groups and keeps each
+        group's lane count, shape and arguments for the profiled
+        replay."""
+        def call(self, parts, bw, bh, cands):
             keys["code_wave"] += 1
-            return fn(*a, **k)
+            keys["groups"].append((sum(len(ids) for _, ids in parts), bw,
+                                   bh, (self, parts, bw, bh, cands)))
+            return fn(self, parts, bw, bh, cands)
+        return call
+
+    def loop_spy(fn):
+        """Per call of the per-wave loop: its tiles, its steps (the most
+        waves of one tile) and the waves summed over the tiles."""
+        def call(self, tiles, cands):
+            per_tile = [int(t["waves"].max()) + 1 if len(t["waves"]) else 0
+                        for t in tiles]
+            keys["wave_tiles"] += len(tiles)
+            keys["wave_steps"] += max(per_tile, default=0)
+            keys["waves"] += sum(per_tile)
+            return fn(self, tiles, cands)
         return call
 
     spies = [(twf.WavefrontIntraEncoder, "encode_compute", compute_spy),
-             (twf.WavefrontIntraEncoder, "_code_wave", wave_spy)]
+             (twf.WavefrontIntraEncoder, "_code_wave", wave_spy),
+             (twf.WavefrontIntraEncoder, "_wave_loop", loop_spy)]
     if hasattr(tdt, "run_tiles_fused"):    # a checkout before the program
         spies.append((tdt, "run_tiles_fused", program_spy))
     return spies
@@ -570,16 +622,96 @@ def phase_slice(torch):
             "launch_shapes": _shape_keys(shapes), "spans": spans}, shapes
 
 
+def _by_mode_n(shapes) -> dict:
+    """{(mode, n): launches} from {(mode, B, n, log_scale): launches}."""
+    out = collections.Counter()
+    for (mode, _, n, _), v in shapes.items():
+        out[(mode, n)] += v
+    return dict(out)
+
+
+def phase_directional(torch):
+    """Preset 2's key frame: the per-wave loop with the intra edge filter.
+    Returns (result, {(mode, B, n, log_scale): launches})."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import intra_dir
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=WIDTH, h=HEIGHT, frames=1, seed=3)
+    cfg = preset_config(width=WIDTH, height=HEIGHT, qp=QP, preset=DIR_PRESET,
+                        intra_period=0, device="cuda")
+    edge_calls = collections.Counter()
+
+    def edge_spy(fn):
+        def call(mode, delta, *a, **k):
+            edge_calls[(mode, delta)] += 1
+            return fn(mode, delta, *a, **k)
+        return call
+
+    ivf, dt, launches, shapes, plain_calls, tracer, keys = _encode_counted(
+        torch, frames, cfg,
+        spies=((intra_dir, "predict_directional_edge_t", edge_spy),))
+    sha = hashlib.sha256(ivf).hexdigest()
+    spans = tracer.summary()
+    key_s = [s["dur"] for s in tracer.spans if s["stage"] == "keyframe"]
+    print(f"[directional] {WIDTH}x{HEIGHT} all-intra preset {DIR_PRESET} "
+          f"qp {QP} (13 intra modes, intra edge filter on, NFL {cfg.nfl}, "
+          f"partition DP down to {cfg.min_partition_size} px with rect "
+          f"arms): 1 frame in {dt:.2f} s, key frame compute "
+          f"{key_s[0] if key_s else 0:.2f} s, {len(ivf)} bytes, sha256 "
+          f"{sha}", flush=True)
+    for stage, v in spans.items():
+        print(f"[directional] span {stage}: {v['count']} x, {v['total_s']} s",
+              flush=True)
+    by_mn = _by_mode_n(shapes)
+    print(f"[directional] per-wave loop: {keys['wave_tiles']} tiles, "
+          f"{keys['waves']} tile waves in {keys['wave_steps']} steps (wave w "
+          f"of every tile per step), {keys['code_wave']} (step, shape) "
+          f"groups; edge-filtered predictor calls "
+          f"{sum(edge_calls.values())} over {len(edge_calls)} (mode, delta)",
+          flush=True)
+    print(f"[directional] kernel launches by mode and n: "
+          f"{ {f'{m} n={n}': v for (m, n), v in sorted(by_mn.items())} }",
+          flush=True)
+    _check_stream("directional", ivf, sha, GOLDEN_DIR_BYTES,
+                  GOLDEN_DIR_SHA256)
+    if not keys["code_wave"] or not edge_calls:
+        raise SystemExit("the key frame did not run the per-wave loop with "
+                         "the edge-filtered predictor")
+    if any(rec["programs"] for rec in keys["frames"]):
+        raise SystemExit("the directional key frame ran the frame program")
+    if launches.get("quant_stage_rdoq", 0) + launches.get("quant_stage",
+                                                           0) <= 0:
+        raise SystemExit("the directional key frame never launched the "
+                         "fused kernel")
+    if plain_calls:
+        raise SystemExit(f"the plain trim or rate ran on the main path: "
+                         f"{plain_calls}")
+    print("[directional] stream equals the JAX golden; per-wave loop with "
+          "the edge filter; plain rdoq_trim_j / _rate_cdf_j calls 0",
+          flush=True)
+    return {"seconds": dt, "keyframe_compute_s": key_s, "bytes": len(ivf),
+            "sha256": sha, "launches": launches,
+            "launches_by_mode_n": {f"{m} n={n}": v
+                                   for (m, n), v in sorted(by_mn.items())},
+            "launch_shapes": _shape_keys(shapes),
+            "wave_tiles": keys["wave_tiles"], "waves": keys["waves"],
+            "wave_steps": keys["wave_steps"], "groups": keys["groups"],
+            "wave_shape_groups": keys["code_wave"],
+            "edge_predictor_calls": {f"{m},{d}": v for (m, d), v
+                                     in sorted(edge_calls.items())},
+            "plain_trim_rate_calls": plain_calls, "spans": spans}, shapes
+
+
 INTER_SPANS = ("inter_partition_dp", "inter_blocks", "intra_flip",
                "flip_decision", "flip_apply", "tmvp_build", "dlf", "entropy")
 
 
 def phase_inter(torch, check_keyframes: bool = True):
     """The random-access operating point. Returns (result, {(mode, B, n,
-    log_scale): launches} over the whole encode, the largest shape
-    group's arguments). ``check_keyframes=False`` (``inter_ab.py`` on a
-    checkout before the fused keyframe program) skips the key frame
-    report and its checks."""
+    log_scale): launches} over the whole encode, the same inside the inter
+    frames, the largest shape group's arguments).
+    ``check_keyframes=False`` (``inter_ab.py`` on a checkout before the
+    fused keyframe program) skips the key frame report and its checks."""
     from svt_av1_tpu_torch.app.cli import preset_config
     from svt_av1_tpu_torch.ops import device as dev
     from svt_av1_tpu_torch.ops import device_inter as di
@@ -669,7 +801,7 @@ def phase_inter(torch, check_keyframes: bool = True):
             "inter_launch_shapes": _shape_keys(inter_shapes),
             "flipped_blocks": flipped,
             "plain_trim_rate_calls": plain_calls,
-            "spans": spans}, shapes, biggest
+            "spans": spans}, shapes, inter_shapes, biggest
 
 
 def phase_group_profile(torch, biggest) -> dict:
@@ -703,6 +835,51 @@ def phase_group_profile(torch, biggest) -> dict:
     print(f"[inter-profile] shape group {size}, B={res['B']}: wall "
           f"{res['wall_ms']:.2f} ms, device busy {res['device_busy_ms']:.3f}"
           f" ms ({share}), {res['device_ops']} device ops", flush=True)
+    return res
+
+
+def phase_directional_profile(torch, groups) -> dict:
+    """One (step, shape) group of the directional key frame's per-wave
+    loop replayed under torch.profiler (device activity only): the
+    median-lane group of the most frequent shape, Y, U and V decides with
+    the edge filter. Returns its wall ms, device busy ms and device
+    operations. The replay rewrites that group's decisions and recon with
+    the same values (the stream is already written)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from svt_av1_tpu_torch.pipeline import wavefront as twf
+    shapes = collections.Counter((bw, bh) for _, bw, bh, _ in groups)
+    (bw, bh), _ = shapes.most_common(1)[0]
+    same = sorted((g for g in groups if (g[1], g[2]) == (bw, bh)),
+                  key=lambda g: g[0])
+    lanes, _, _, args = same[len(same) // 2]
+
+    def run() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        twf.WavefrontIntraEncoder._code_wave(*args)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    wall_ms = run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = run()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda]
+    busy_ms = sum(dev_ns) / 1e6
+    res = {"shape": [bw, bh], "lanes": lanes, "groups_of_shape": len(same),
+           "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+           "device_ops": len(dev_ns)}
+    share = "not measured" if res["device_busy_share"] is None \
+        else f"{100 * res['device_busy_share']:.2f}% of the plain wall"
+    print(f"[directional-profile] one per-wave group (Y {bw}x{bh}, U/V "
+          f"{bw // 2}x{bh // 2}, {lanes} lanes; median of the {len(same)} "
+          f"groups of the most frequent shape): wall {wall_ms:.2f} ms plain, "
+          f"{prof_wall_ms:.2f} ms profiled; device busy {busy_ms:.3f} ms "
+          f"({share}), {len(dev_ns)} device ops", flush=True)
     return res
 
 
@@ -807,11 +984,13 @@ def phase_profile(torch, np) -> dict:
 
 
 def kernel_entries(torch, by_path, shapes, int32_ops) -> list:
-    """The kernels line: the kernel in each mode, timed at the heaviest
-    shape (B * n) that the main path's two encodes gave that mode — the
-    quantize-only mode, which the main path does not launch, at the
-    heaviest fused shape — against its plain version. ``by_path``:
-    {path: {mode: launches}}, each counted from 0 in its own run."""
+    """The kernels line: one entry per mode and row length, each timed at
+    the heaviest shape (B * n, then B) that the main path's encodes gave
+    it, against its plain version. A (mode, n) the encodes never launched
+    (the quantize-only mode, and some rows of the rate-only mode) is
+    timed at the heaviest shape any mode had at that n, or at B=8160.
+    ``by_path``: {path: {(mode, n): launches}}, each counted from 0 in its
+    own run; ``ra_inter_frames`` is part of ``random_access``."""
     replaces = "svt_av1_tpu/ops/device.py:728 quantize_pallas " \
         "(quantize_qv contract, device.py:250)"
     fused = replaces + "; fused with _rate_cdf_j " \
@@ -821,35 +1000,47 @@ def kernel_entries(torch, by_path, shapes, int32_ops) -> list:
         "quant_stage": ("quantize + rate (RDOQ off)", fused),
         "quant_stage_rdoq": ("quantize + RDOQ-lite trim + rate",
                              fused + " and rdoq_trim_j device_md.py:216")}
-    heaviest = {}
+    heaviest, any_mode = {}, {}
     for k in shapes:
-        heaviest[k[0]] = max(heaviest.get(k[0], k), k,
-                             key=lambda s: (s[1] * s[2], s))
+        mode, b, n, ls = k
+        heaviest[(mode, n)] = max(heaviest.get((mode, n), k), k,
+                                  key=lambda s: (s[1], s))
+        any_mode[n] = max(any_mode.get(n, k), k, key=lambda s: (s[1], s))
     out = []
     for name in _modes():
-        key = heaviest.get(name) or max(heaviest.values(),
-                                        key=lambda s: (s[1] * s[2], s))
-        _, b, n, ls = key
-        ins = _stage_inputs(torch, n, ls, b, seed=11)
-        row = _check(torch, name, *ins, ls)
-        if not row["exact"]:
-            raise SystemExit(f"{name} kernel != plain at {row}")
-        _timed(torch, row, name, *ins, ls, int32_ops)
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "svt_av1_tpu_torch/csrc/quant.cu",
-            "replaces": what[name][1], "mode": what[name][0],
-            "launches": sum(p.get(name, 0) for path, p in by_path.items()
-                            if path != "ra_inter_frames"),
-            "launches_by_path": {path: p.get(name, 0)
-                                 for path, p in by_path.items()},
-            "exact": row["exact"], "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "kernel_ms": row["ms"],
-            "call_ms": row["call_ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "int_instr": row["int_instr"],
-            "library_ms": None,
-            "shape": {"B": b, "n": n, "log_scale": ls}})
+        for n in _row_lengths():
+            key = heaviest.get((name, n)) or any_mode.get(n) \
+                or (name, 8160, n, 0)
+            _, b, _, ls = key
+            ins = _stage_inputs(torch, n, ls, b, seed=11 + n)
+            row = _check(torch, name, *ins, ls)
+            if not row["exact"]:
+                raise SystemExit(f"{name} kernel != plain at {row}")
+            _timed(torch, row, name, *ins, ls, int32_ops)
+            by = {path: p.get((name, n), 0) for path, p in by_path.items()}
+            out.append({
+                "name": f"{name} n={n}", "route": "cuda",
+                "source": "svt_av1_tpu_torch/csrc/quant.cu",
+                "replaces": what[name][1], "mode": what[name][0],
+                "launches": sum(v for path, v in by.items()
+                                if path != "ra_inter_frames"),
+                "launches_by_path": by,
+                "exact": row["exact"], "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "kernel_ms": row["ms"],
+                "call_ms": row["call_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "int_instr": row["int_instr"],
+                "library_ms": None,
+                "shape": {"B": b, "n": n, "log_scale": ls},
+                "shape_from": "main path" if (name, n) in heaviest
+                else "another mode's main-path shape" if n in any_mode
+                else "synthetic"})
+    for e in out:
+        print(f"[kernels] {e['name']}: {e['launches']} launches "
+              f"{e['launches_by_path']}; B={e['shape']['B']} "
+              f"ls={e['shape']['log_scale']} ({e['shape_from']}): "
+              f"{e['ms']:.5f} ms, plain {e['plain_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.5f} ms ({e['bound_by']})", flush=True)
     return out
 
 
@@ -865,23 +1056,31 @@ def main() -> int:
     grid = phase_kernels(torch, env["int32_ops_per_s"])
     slice_res, shapes = phase_slice(torch)
     replay = slice_res.pop("replay")
-    inter_res, inter_shapes, biggest = phase_inter(torch)
-    by_path = {"all_intra": slice_res["launches"],
-               "random_access": inter_res["launches"],
-               "ra_inter_frames": inter_res["inter_launches"]}
+    inter_res, inter_shapes, inter_frame_shapes, biggest = \
+        phase_inter(torch)
+    dir_res, dir_shapes = phase_directional(torch)
+    dir_groups = dir_res.pop("groups")
+    by_path = {"all_intra": _by_mode_n(shapes),
+               "random_access": _by_mode_n(inter_shapes),
+               "ra_inter_frames": _by_mode_n(inter_frame_shapes),
+               "directional": _by_mode_n(dir_shapes)}
     shapes = collections.Counter(shapes)
     shapes.update(inter_shapes)
+    shapes.update(dir_shapes)
     kernels = kernel_entries(torch, by_path, shapes, env["int32_ops_per_s"])
     group_prof = phase_group_profile(torch, biggest)
     key_prof = phase_keyframe_profile(torch, replay)
     prof = phase_profile(torch, np)
+    dir_prof = phase_directional_profile(torch, dir_groups)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"env": env, "build": build, "kernel_grid": grid,
                    "slice": slice_res, "inter": inter_res,
+                   "directional": dir_res,
                    "kernels": kernels, "shape_group_profile": group_prof,
                    "keyframe_program_profile": key_prof,
-                   "wave_profile": prof}, f, indent=1)
+                   "wave_profile": prof,
+                   "directional_group_profile": dir_prof}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

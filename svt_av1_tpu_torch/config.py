@@ -8,8 +8,9 @@ takes the place of ``backend``. Entry points run on that device; a
 ``"cuda"`` config on a machine without a card raises instead of falling
 back to the CPU.
 
-The port covers all-intra streams and the fused inter path (low-delay P
-and hierarchical-B random access, with compound prediction, TMVP and the
+The port covers all-intra streams (with the normative intra edge filter
+of the directional presets) and the fused inter path (low-delay P and
+hierarchical-B random access, with compound prediction, TMVP and the
 intra-flip pass). ``__post_init__`` raises ``NotImplementedError`` for
 every tool that a later slice brings.
 """
@@ -217,7 +218,6 @@ class EncoderConfig:
 
 def _reject_later_slices(cfg: EncoderConfig) -> None:
     """Raise NotImplementedError for a tool the port does not run yet."""
-    from svt_av1_tpu_torch.pipeline.common import edge_filter_active
     inter = cfg.intra_period != 0 or cfg.hierarchical_levels > 0
     later = [
         (inter and cfg.enable_tx_type_search,
@@ -238,8 +238,6 @@ def _reject_later_slices(cfg: EncoderConfig) -> None:
          "the multi-device slice"),
         (cfg.intra_dp_satd, "SATD partition scoring",
          "the SATD scoring slice"),
-        (edge_filter_active(cfg), "the intra edge filter on directional "
-         "candidates", "the directional-preset slice"),
     ]
     for hit, what, slice_name in later:
         if hit:

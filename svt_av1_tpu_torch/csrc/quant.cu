@@ -56,11 +56,14 @@
 // Design for the card:
 // - Tiling by row length: each thread holds 4 consecutive coefficients
 //   (one 16 B load of the row, one 16 B store of q and of dq), so a row
-//   is a group of n/4 threads: 4 lanes at n=16, 16 at n=64 (several rows
-//   share a warp), 64 at n=256 (two warps) and 256 at n=1024 (a block).
-//   Blocks of 128 threads (256 at n=1024) carry several rows, so a
-//   B=8160 batch of 16-coefficient rows is 255 blocks instead of 8160
-//   one-warp blocks.
+//   is a group of n/4 threads. The full loop's rows are the coded
+//   coefficients of a transform: n=16, 64, 256, 1024 for the squares,
+//   32 (4x8, 8x4), 128 (8x16, 16x8) and 512 (16x32, 32x16, and 16x64,
+//   64x16, whose 64-point side keeps 32) for the rectangles. So a row is
+//   4, 8, 16 or 32 lanes (several rows share a warp), 64 (two warps),
+//   128 (a block of four warps) or 256 (a block of eight). Blocks of 128
+//   threads (256 at n=1024) carry several rows, so a B=8160 batch of
+//   16-coefficient rows is 255 blocks instead of 8160 one-warp blocks.
 // - The row's ten DC/AC parameters (and its CDF qindex bucket) come from
 //   a packed int32 table [256][2][8] in two or four 16 B loads per thread
 //   straight into registers; they are independent of the coefficient
@@ -416,9 +419,9 @@ int launch_mode(int mode, const void* coeff, const void* qv,
 // Launch on `stream` over B rows of n coefficients in `mode` (0 quantize,
 // 1 + rate, 2 + trim + rate); returns the cudaGetLastError() code of the
 // launch (0 = success). The caller checks shapes, types, contiguity and
-// 16-byte alignment of coeff, iscan, params, lut, q and dq; n is 16, 64,
-// 256 or 1024. lam, lut and rate may be null where the mode reads or
-// writes none of them.
+// 16-byte alignment of coeff, iscan, params, lut, q and dq; n is 16, 32,
+// 64, 128, 256, 512 or 1024. lam, lut and rate may be null where the mode
+// reads or writes none of them.
 extern "C" int svt_quant_stage_cuda(const void* coeff, const void* qv,
                                     const void* lam, const void* params,
                                     const void* lut, const void* ebl,
@@ -429,20 +432,18 @@ extern "C" int svt_quant_stage_cuda(const void* coeff, const void* qv,
   if (B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (n) {
-    case 16:
-      return launch_mode<16>(mode, coeff, qv, lam, params, lut, ebl, iscan,
-                             q, dq, eob, rate, B, log_scale, gq12, s);
-    case 64:
-      return launch_mode<64>(mode, coeff, qv, lam, params, lut, ebl, iscan,
-                             q, dq, eob, rate, B, log_scale, gq12, s);
-    case 256:
-      return launch_mode<256>(mode, coeff, qv, lam, params, lut, ebl,
-                              iscan, q, dq, eob, rate, B, log_scale, gq12,
-                              s);
-    case 1024:
-      return launch_mode<1024>(mode, coeff, qv, lam, params, lut, ebl,
-                               iscan, q, dq, eob, rate, B, log_scale, gq12,
-                               s);
+#define SVT_QUANT_N(N)                                                    \
+    case N:                                                               \
+      return launch_mode<N>(mode, coeff, qv, lam, params, lut, ebl, iscan, \
+                            q, dq, eob, rate, B, log_scale, gq12, s);
+    SVT_QUANT_N(16)
+    SVT_QUANT_N(32)
+    SVT_QUANT_N(64)
+    SVT_QUANT_N(128)
+    SVT_QUANT_N(256)
+    SVT_QUANT_N(512)
+    SVT_QUANT_N(1024)
+#undef SVT_QUANT_N
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -291,6 +291,9 @@ def quantize_qv_plain(coeff, scan: np.ndarray, qv, log_scale: int, bd: int):
 # loop's two consumers of its result, the RDOQ-lite trim and the CDF
 # level rate (device_md.quant_stage_j). One kernel, three modes:
 QUANT_ONLY, QUANT_RATE, QUANT_TRIM_RATE = 0, 1, 2
+# the row lengths it takes: the coded coefficients of every transform
+# size (4x8/8x4 32, 8x16/16x8 128, 16x32 up to 64x16 512)
+ROW_LENGTHS = (16, 32, 64, 128, 256, 512, 1024)
 # launch counters, one per mode
 MODE_NAMES = {QUANT_ONLY: "quantize_qv", QUANT_RATE: "quant_stage",
               QUANT_TRIM_RATE: "quant_stage_rdoq"}
@@ -353,8 +356,8 @@ def quant_stage_launch(mode: int, coeff, scan: np.ndarray, qv,
                        log_scale: int, bd: int, lam=None,
                        rate_ptrs=(None, None, 0)):
     """Launch csrc/quant.cu on CUDA tensors in ``mode`` (QUANT_ONLY,
-    QUANT_RATE or QUANT_TRIM_RATE). coeff [B, n] int32 (n 16, 64, 256,
-    1024), qv [B] int32, lam [B] int64 (trim); ``rate_ptrs``: (pointer
+    QUANT_RATE or QUANT_TRIM_RATE). coeff [B, n] int32 (n in ROW_LENGTHS),
+    qv [B] int32, lam [B] int64 (trim); ``rate_ptrs``: (pointer
     to the level-cost table [4, 256] int32, pointer to the eob bits LUT
     [>= n + 1] int32, gq12), for the rate modes. Returns (q, dq, eob)
     and, with a rate mode, rate [B] int64.
@@ -367,7 +370,7 @@ def quant_stage_launch(mode: int, coeff, scan: np.ndarray, qv,
     if coeff.dtype != torch.int32 or coeff.dim() != 2:
         raise ValueError(f"{name}: coeff must be [B, n] int32")
     b, n = coeff.shape
-    if n not in (16, 64, 256, 1024) or len(scan) != n:
+    if n not in ROW_LENGTHS or len(scan) != n:
         raise ValueError(f"{name}: unsupported row length {n}")
     if log_scale not in (0, 1, 2):
         raise ValueError(f"{name}: log_scale {log_scale}")
@@ -726,10 +729,13 @@ def dlf_apply_len_batch(s, length: int, blimit, limit, thresh, bd: int = 8):
 # boundaries (filter span is bounded by the minimum tx dim — spec 7.14),
 # so masked strided stores reproduce the host's sequential edge writes.
 
-def _dlf_thresholds_j(level):
-    """thresholds() with a tensor level (sharpness 0)."""
+def _dlf_thresholds_j(level, bd: int):
+    """thresholds() with a tensor level (sharpness 0), scaled to ``bd``
+    bits as the host's _edge_filter scales them."""
     limit = level.clamp(min=1)
-    return 2 * (level + 2) + limit, limit, level >> 4
+    shift = bd - 8
+    return ((2 * (level + 2) + limit) << shift, limit << shift,
+            (level >> 4) << shift)
 
 
 def _dlf_dir_pass_j(plane, txd_map, start, level, is_luma: bool,
@@ -741,7 +747,7 @@ def _dlf_dir_pass_j(plane, txd_map, start, level, is_luma: bool,
     uh, uw = txd_map.shape
     uh = min(uh, h_eff // 4)
     uw = min(uw, w_eff // 4)
-    blimit, limit, thresh = _dlf_thresholds_j(level)
+    blimit, limit, thresh = _dlf_thresholds_j(level, bd)
 
     # per-unit filter length from the tx dims across each boundary
     mn = torch.minimum(txd_map[:uh, 1:uw], txd_map[:uh, :uw - 1])

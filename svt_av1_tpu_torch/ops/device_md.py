@@ -3,7 +3,8 @@
 
 ``decide_block_batch_dev`` reproduces ``pipeline.md.decide_block_batch``
 bit for bit on a torch device: all candidate intra predictions
-(directional zones Z1/Z2/Z3 and CfL included), the integer fast-loop
+(directional zones Z1/Z2/Z3, with or without the normative intra edge
+filter, and CfL included), the integer fast-loop
 ranking, the NFL full loop (forward transform, the quantization stage —
 quantize, RDOQ-lite trim, CDF-LUT rate, dequantize: one launch of the
 hand-written kernel on CUDA — inverse transform, recon) and the luma tx-type
@@ -101,12 +102,18 @@ def _z2_j(above1, left1, bw, bh, dx, dy, bd):
 
 
 def predict_any_j(mode: int, delta: int, above1, left1, bw, bh, ha, hl,
-                  bd: int = 8):
-    """Twin of intra_ops.predict_any for one static (mode, delta), with the
-    intra edge filter off. above1/left1: offset-1 edge arrays (int32)."""
+                  bd: int = 8, edge=None):
+    """Twin of intra_ops.predict_any for one static (mode, delta).
+    above1/left1: offset-1 edge arrays (int32). ``edge``: None (the intra
+    edge filter is off) or (ftype, n_top, n_left) [B] tensors for the
+    normative edge filter + upsample on directional modes."""
     if intra_dir.is_directional(mode):
         angle = intra_dir.mode_angle(mode, delta)
         if angle not in (90, 180):
+            if edge is not None:
+                return intra_dir.predict_directional_edge_t(
+                    mode, delta, above1.long(), left1.long(), bw, bh, ha,
+                    hl, *edge, bd=bd)
             if 0 < angle < 90:
                 return _z1_j(above1, bw, bh, intra_dir.get_dx(angle), bd)
             if 90 < angle < 180:
@@ -338,11 +345,12 @@ def _tt_for_lut(all_cands, plane, tx_size, reduced_tx_set):
 def make_decide_core(plane: int, cands: tuple, size,
                      bd: int, nfl: int, reduced_tx_set: bool,
                      has_forced: bool, has_cfl: bool, tx_search: bool,
-                     rdoq: bool = False):
+                     rdoq: bool = False, edge_filter: bool = False):
     """Build the decide function for a static configuration. The returned
     function takes tensors on one device, with trailing ``qv``/``lamqv``
     [B] quantizer vectors (qindex/lambda are operands, not part of the
-    configuration)."""
+    configuration) and, with ``edge_filter``, the intra edge filter's
+    ``ftype``/``n_top``/``n_left`` [B] operands after them."""
     bw, bh = common.leaf_wh(size)
     tx_size = common.tx_size_for_rect(bw, bh, plane)
     all_cands = list(cands)
@@ -380,10 +388,16 @@ def make_decide_core(plane: int, cands: tuple, size,
         alpha = cfl_fit_alpha_j(ac, srcs, dc)
         return cfl_predict_j(dc, ac, alpha, bd), alpha
 
+    def edge_of(ftype, n_top, n_left):
+        if not edge_filter:
+            return None
+        return ftype.to(torch.int32), n_top.long(), n_left.long()
+
     def forced_fn(srcs, above1, left1, ha, hl, fmodes, fdeltas,
-                  cfl_luma, qv, lamqv):
+                  cfl_luma, qv, lamqv, ftype=None, n_top=None, n_left=None):
         b = srcs.shape[0]
         device = srcs.device
+        edge = edge_of(ftype, n_top, n_left)
         srcs = srcs.to(torch.int64)
         above1 = above1.to(torch.int32)
         left1 = left1.to(torch.int32)
@@ -404,7 +418,8 @@ def make_decide_core(plane: int, cands: tuple, size,
                 p, al = cfl_parts(srcs, above1, left1, ha, hl, cfl_luma)
                 alphas = torch.where(sel, al, alphas)
             else:
-                p = predict_any_j(m, d, above1, left1, bw, bh, ha, hl, bd)
+                p = predict_any_j(m, d, above1, left1, bw, bh, ha, hl, bd,
+                                  edge)
             preds = torch.where(sel[:, None, None], p.to(torch.int64),
                                 preds)
         ftts = tts_of(fmodes)
@@ -414,9 +429,11 @@ def make_decide_core(plane: int, cands: tuple, size,
         cost = _rdcost_j(dist, lamqv, rate)
         return (fmodes, fdeltas, qc, eo, rec, cost, alphas, ftts)
 
-    def decide_fn(srcs, above1, left1, ha, hl, cfl_luma, qv, lamqv):
+    def decide_fn(srcs, above1, left1, ha, hl, cfl_luma, qv, lamqv,
+                  ftype=None, n_top=None, n_left=None):
         b = srcs.shape[0]
         device = srcs.device
+        edge = edge_of(ftype, n_top, n_left)
         srcs = srcs.to(torch.int64)
         above1 = above1.to(torch.int32)
         left1 = left1.to(torch.int32)
@@ -431,7 +448,7 @@ def make_decide_core(plane: int, cands: tuple, size,
                                            cfl_luma)
             else:
                 p = predict_any_j(int(m), int(d), above1, left1, bw, bh,
-                                  ha, hl, bd)
+                                  ha, hl, bd, edge)
             pred_list.append(p.to(torch.int64))
         preds = torch.stack(pred_list, dim=0)                 # [M,B,h,w]
         diff = srcs[None] - preds
@@ -561,10 +578,14 @@ def _upload(arrs, bd: int, device):
 def decide_block_batch_dev(plane, srcs, above1, left1, ha, hl, cands, qp,
                            size, lam, bd=8, nfl=3, reduced_tx_set=False,
                            forced=None, cfl_luma=None, tx_search=False,
-                           rdoq=False, qv=None, lamv=None, device="cuda"):
+                           rdoq=False, qv=None, lamv=None, edge=None,
+                           device="cuda"):
     """Drop-in twin of md.decide_block_batch running the compute on a
     torch ``device`` (same integer decisions, same numpy return types).
-    ``qv``/``lamv``: optional per-block qindex / float-lambda arrays."""
+    ``qv``/``lamv``: optional per-block qindex / float-lambda arrays.
+    ``edge``: None or (ftype, n_top, n_left) [B] arrays for the normative
+    intra edge filter (filt_type and the real above / left sample
+    counts)."""
     b = srcs.shape[0]
     pix = np.uint16 if bd > 8 else np.uint8
     ins = _upload((srcs, above1, left1, ha, hl), bd, device)
@@ -576,13 +597,17 @@ def decide_block_batch_dev(plane, srcs, above1, left1, ha, hl, cands, qp,
     fn = make_decide_core(plane, tuple(map(tuple, cands)),
                           size if isinstance(size, int) else tuple(size),
                           bd, nfl, reduced_tx_set, forced is not None,
-                          cfl_luma is not None, tx_search, rdoq)
+                          cfl_luma is not None, tx_search, rdoq,
+                          edge is not None)
+    ekw = () if edge is None else tuple(   # narrow wire widths
+        const(np.asarray(e, dtype=t), device)
+        for e, t in zip(edge, (np.int8, np.int16, np.int16)))
     if forced is not None:
         fm = const(np.asarray(forced[0], dtype=np.int8), device)
         fd = const(np.asarray(forced[1], dtype=np.int8), device)
-        outs = fn(*ins, fm, fd, cfl_t, qvec, lamqv)
+        outs = fn(*ins, fm, fd, cfl_t, qvec, lamqv, *ekw)
     else:
-        outs = fn(*ins, cfl_t, qvec, lamqv)
+        outs = fn(*ins, cfl_t, qvec, lamqv, *ekw)
     modes, deltas, qc, eo, rec, cost, alphas, tts = \
         [o.cpu().numpy() for o in outs]
     return (modes.astype(np.int64), deltas.astype(np.int64),

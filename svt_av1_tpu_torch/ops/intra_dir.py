@@ -1,9 +1,11 @@
-"""Directional (angular) intra prediction, batched (host NumPy oracle).
+"""Directional (angular) intra prediction, batched: the host NumPy oracle
+and, for the per-wave keyframe path, its torch twins.
 
-Normative AV1 directional prediction without edge filtering/upsampling —
-this encoder signals ``enable_intra_edge_filter = 0`` in the sequence
-header, so the spec's filter/upsample steps are disabled and prediction is
-pure 2-tap interpolation along the angle. Semantics follow the reference
+Without the intra edge filter (sequence header ``enable_intra_edge_filter
+= 0``) prediction is pure 2-tap interpolation along the angle. With it,
+the normative edge filter and upsample (AV1 spec 7.11.2) process the edges
+first (``predict_directional_edge``; torch twin
+``predict_directional_edge_t``). Semantics follow the reference
 ``EbIntraPrediction.c``: dr_intra_derivative (:342), av1_dr_prediction_z1_c
 (:445), z2 (:485), z3 (:413).
 
@@ -14,10 +16,15 @@ to 0) — zone 2 reads index -1.
 
 from __future__ import annotations
 
-import numpy as np
+import functools
 
+import numpy as np
+import torch
+
+from svt_av1_tpu_torch.ops.device import const
 from svt_av1_tpu_torch.utils.blocks import (MODE_TO_ANGLE, SMOOTH_H_PRED,
-                                      SMOOTH_PRED, SMOOTH_V_PRED, V_PRED)
+                                            SMOOTH_PRED, SMOOTH_V_PRED,
+                                            V_PRED)
 
 ANGLE_STEP = 3
 MAX_ANGLE_DELTA = 3
@@ -146,9 +153,10 @@ def predict_directional(mode: int, angle_delta: int, above1: np.ndarray,
 # av1_filter_intra_edge(row - 1, n_px, s) is exactly a filter over
 # edge1[0..sz-1] modifying indices 1..sz-1.
 #
-# Everything here is written against an array-namespace parameter ``xp``
-# (numpy or jax.numpy) so the host oracle and the device twin are the same
-# integer program by construction.
+# The NumPy functions keep the JAX package's array-namespace parameter
+# ``xp`` (numpy here); the torch twins at the end of the module compute the
+# same integers on a torch device, with every static index and shift
+# computed once in numpy and cached on the device.
 
 INTRA_EDGE_KERNELS = ((0, 4, 8, 4, 0), (0, 5, 6, 5, 0), (2, 4, 4, 4, 2))
 MAX_UPSAMPLE_SZ = 16
@@ -253,24 +261,10 @@ def upsample_edge_batch(xp, edge1, n_px: int, bd: int):
     s = xp.clip((s + 8) >> 4, 0, (1 << bd) - 1)              # [B, n_px]
     b = edge1.shape[0]
     out = xp.zeros((b, 2 * n_px + 1), dtype=edge1.dtype)
-    out = _set_strided(xp, out, 0, edge1[:, 0])
-    out = _set_slice(xp, out, slice(1, None, 2), s)
-    out = _set_slice(xp, out, slice(2, None, 2), edge1[:, 1:1 + n_px])
+    out[:, 0] = edge1[:, 0]
+    out[:, 1::2] = s
+    out[:, 2::2] = edge1[:, 1:1 + n_px]
     return out
-
-
-def _set_strided(xp, arr, idx, val):
-    if xp is np:
-        arr[:, idx] = val
-        return arr
-    return arr.at[:, idx].set(val)
-
-
-def _set_slice(xp, arr, sl, val):
-    if xp is np:
-        arr[:, sl] = val
-        return arr
-    return arr.at[:, sl].set(val)
 
 
 def _z1e(xp, above, bw, bh, dx, bd, up: int, off: int):
@@ -406,3 +400,160 @@ def predict_directional_edge(mode: int, angle_delta: int, above1, left1,
     p1 = _process_and_predict(xp, angle, above1, left1, bw, bh, ha, hl,
                               n_top, n_left, 1, bd)
     return xp.where((ftype != 0)[:, None, None], p1, p0)
+
+
+# --- torch twins of the edge process (the per-wave keyframe path) ------------
+# Same integer program as the NumPy functions above, on int64 tensors of
+# one device. Everything that depends only on (angle, block, filt_type)
+# is a cached constant; the per-lane span of the filter (from n_top /
+# n_left) clamps a cached tap index.
+
+def _long(arr, device) -> torch.Tensor:
+    return const(arr, device, torch.long)
+
+
+@functools.lru_cache(maxsize=256)
+def _filter_consts(length: int, strength: int, device: torch.device):
+    """(tap index [L, 5] clipped below at 0, kernel [5], positions [L])."""
+    taps = np.arange(length)[:, None] - 2 + np.arange(5)[None, :]
+    return (_long(np.maximum(taps, 0), device),
+            _long(INTRA_EDGE_KERNELS[strength - 1], device),
+            torch.arange(length, device=device))
+
+
+def filter_edge_t(edge1, sz, strength: int, apply_mask):
+    """Twin of filter_edge_batch: edge1 [B, L] int64, sz [B] int64 span
+    including the corner, apply_mask [B] bool."""
+    b, length = edge1.shape
+    taps, kern, pos = _filter_consts(length, strength, edge1.device)
+    k = torch.minimum(taps[None], (sz.clamp(min=1) - 1)[:, None, None])
+    t = edge1.gather(1, k.reshape(b, length * 5)).reshape(b, length, 5)
+    filt = ((t * kern).sum(dim=2) + 8) >> 4
+    do = apply_mask[:, None] & (pos[None] >= 1) & (pos[None] < sz[:, None])
+    return torch.where(do, filt, edge1)
+
+
+@functools.lru_cache(maxsize=64)
+def _upsample_index(n_px: int, device: torch.device) -> torch.Tensor:
+    """The extended edge of upsample_edge_batch as one gather index:
+    corner, corner, samples 1..n_px, sample n_px."""
+    return _long([0, 0] + list(range(1, n_px + 1)) + [n_px], device)
+
+
+def upsample_edge_t(edge1, n_px: int, bd: int):
+    """Twin of upsample_edge_batch: [B, L] offset-1 -> [B, 2 n_px + 1]
+    offset-2."""
+    assert n_px <= MAX_UPSAMPLE_SZ
+    ext = edge1[:, _upsample_index(n_px, edge1.device)]       # [B, n_px+3]
+    s = (-ext[:, :-3] + 9 * ext[:, 1:-2] + 9 * ext[:, 2:-1] - ext[:, 3:])
+    s = ((s + 8) >> 4).clamp(0, (1 << bd) - 1)
+    pairs = torch.stack([s, edge1[:, 1:1 + n_px]], dim=2)
+    return torch.cat([edge1[:, :1], pairs.reshape(len(edge1), 2 * n_px)],
+                     dim=1)
+
+
+@functools.lru_cache(maxsize=512)
+def _z13e_consts(bw: int, bh: int, d: int, up: int, off: int,
+                 transposed: bool, device: torch.device):
+    """(shift, index 0, index 1, inside mask, last index) of zone 1
+    (``transposed``: zone 3) on an offset-``off`` edge."""
+    max_base = (bw + bh - 1) << up
+    r = np.arange(bh)[:, None]
+    c = np.arange(bw)[None, :]
+    pos = (c + 1) * d if transposed else (r + 1) * d
+    base = (pos >> (6 - up)) + ((r if transposed else c) << up)
+    return (_long(((pos << up) >> 1) & 0x1F, device),
+            _long(off + np.minimum(base, max_base), device),
+            _long(off + np.minimum(base + 1, max_base), device),
+            const(base < max_base, device),
+            off + max_base)
+
+
+def _z13e_t(edge, bw, bh, d, bd, up: int, off: int, transposed: bool):
+    """Twin of _z1e (``transposed``: _z3e)."""
+    shift, i0, i1, inside, last = _z13e_consts(bw, bh, d, up, off,
+                                               transposed, edge.device)
+    val = (edge[:, i0] * (32 - shift) + edge[:, i1] * shift + 16) >> 5
+    out = torch.where(inside[None], val, edge[:, last][:, None, None])
+    return out.clamp(0, (1 << bd) - 1)
+
+
+@functools.lru_cache(maxsize=512)
+def _z2e_consts(bw, bh, dx, dy, up_a, up_l, off_a, off_l, na, nl,
+                device: torch.device):
+    r = np.arange(bh)[:, None]
+    c = np.arange(bw)[None, :]
+    x = (c << 6) - (r + 1) * dx
+    base_x = x >> (6 - up_a)
+    y = (r << 6) - (c + 1) * dy
+    base_y = y >> (6 - up_l)
+    lo_a, lo_l = -(1 << up_a), -(1 << up_l)
+    return (_long(((x << up_a) & 0x3F) >> 1, device),
+            _long(((y << up_l) & 0x3F) >> 1, device),
+            _long(off_a + np.clip(base_x, lo_a, na), device),
+            _long(off_a + np.clip(base_x + 1, lo_a, na), device),
+            _long(off_l + np.clip(base_y, lo_l, nl), device),
+            _long(off_l + np.clip(base_y + 1, lo_l, nl), device),
+            const(base_x >= lo_a, device))
+
+
+def _z2e_t(above, left, bw, bh, dx, dy, bd, up_a: int, up_l: int,
+           off_a: int, off_l: int):
+    """Twin of _z2e."""
+    sx, sy, ax0, ax1, ly0, ly1, use_x = _z2e_consts(
+        bw, bh, dx, dy, up_a, up_l, off_a, off_l,
+        above.shape[1] - 1 - off_a, left.shape[1] - 1 - off_l, above.device)
+    vx = (above[:, ax0] * (32 - sx) + above[:, ax1] * sx + 16) >> 5
+    vy = (left[:, ly0] * (32 - sy) + left[:, ly1] * sy + 16) >> 5
+    return torch.where(use_x[None], vx, vy).clamp(0, (1 << bd) - 1)
+
+
+def _process_and_predict_t(angle, above1, left1, bw, bh, ha, hl, n_top,
+                           n_left, ft: int, bd: int):
+    """Twin of _process_and_predict (one filt_type variant)."""
+    zone, s_a, s_l, u_a, u_l = _edge_params(angle, bw, bh, ft)
+    a, l = above1, left1
+    if s_a:
+        sz = n_top.clamp(0, bw) + 1 + (bh if zone == 1 else 0)
+        a = filter_edge_t(a, sz, s_a, ha)
+    if s_l:
+        sz = n_left.clamp(0, bh) + 1 + (bw if zone == 3 else 0)
+        l = filter_edge_t(l, sz, s_l, hl)
+    off_a = off_l = 1
+    if u_a:
+        a = upsample_edge_t(a, bw + (bh if zone == 1 else 0), bd)
+        off_a = 2
+    if u_l:
+        l = upsample_edge_t(l, bh + (bw if zone == 3 else 0), bd)
+        off_l = 2
+    if zone == 1:
+        return _z13e_t(a, bw, bh, get_dx(angle), bd, int(u_a), off_a, False)
+    if zone == 2:
+        return _z2e_t(a, l, bw, bh, get_dx(angle), get_dy(angle), bd,
+                      int(u_a), int(u_l), off_a, off_l)
+    return _z13e_t(l, bw, bh, get_dy(angle), bd, int(u_l), off_l, True)
+
+
+def predict_directional_edge_t(mode: int, angle_delta: int, above1, left1,
+                               bw: int, bh: int, ha, hl, ftype, n_top,
+                               n_left, bd: int = 8):
+    """Twin of predict_directional_edge on tensors of one device: above1 /
+    left1 [B, 1 + bw + bh] int64, ha / hl [B] bool, ftype [B] (filt_type),
+    n_top / n_left [B] int64 (real above / left sample counts). Returns
+    [B, bh, bw] int64."""
+    angle = mode_angle(mode, angle_delta)
+    assert angle not in (90, 180)
+    if 90 < angle < 180 and bw + bh >= 24:
+        # corner filter (filter_intra_edge_corner), filt_type independent
+        s = (left1[:, 1] * 5 + above1[:, 0] * 6 + above1[:, 1] * 5 + 8) >> 4
+        both = ha & hl
+        above1 = torch.cat([torch.where(both, s, above1[:, 0])[:, None],
+                            above1[:, 1:]], dim=1)
+        left1 = torch.cat([torch.where(both, s, left1[:, 0])[:, None],
+                           left1[:, 1:]], dim=1)
+    args = (angle, above1, left1, bw, bh, ha, hl, n_top, n_left)
+    if _edge_params(angle, bw, bh, 0) == _edge_params(angle, bw, bh, 1):
+        return _process_and_predict_t(*args, 0, bd)
+    p0 = _process_and_predict_t(*args, 0, bd)
+    p1 = _process_and_predict_t(*args, 1, bd)
+    return torch.where((ftype != 0)[:, None, None], p1, p0)

@@ -11,10 +11,13 @@ Key frames take the fused tile programs (``ops/device_tile.py``) wherever
 the JAX package's device backend takes them: with several tiles every
 tile defers into one frame-batched program and the recon stays on the
 device through deblocking into the reference slots; a single tile runs
-its own program. A tile with leaves below 8 px takes the per-wave loop
-(``_wave_loop``): per wave and leaf shape the prediction edges are
-prepared on the host from the numpy recon, each plane's wave goes to the
-device and its decisions and recon come back.
+its own program. Key frames whose candidates engage the intra edge filter
+(``common.edge_filter_active``), and tiles with leaves below 8 px, take
+the per-wave loop (``_wave_loop``): per wave and leaf shape the prediction
+edges, each lane's filt_type (from the tile's neighbour-smoothness maps)
+and its real above / left sample counts are prepared on the host from the
+numpy recon, each plane's wave goes to the device and its decisions and
+recon come back.
 """
 
 from __future__ import annotations
@@ -67,44 +70,60 @@ class WavefrontIntraEncoder:
                                               bit_depth=cfg.bit_depth)
         self.lam = rd.rd_lambda(cfg.base_q_idx, cfg.bit_depth)
         # the fused tile programs take key frames unless the intra edge
-        # filter can engage (the JAX gate; the port's config refuses such
-        # configs, so this holds wherever the port runs)
-        self._fused = not common.edge_filter_active(cfg)
+        # filter can engage (the JAX gate): those need per-lane filt_type
+        # operands, which only the per-wave loop carries
+        self._edge = common.edge_filter_active(cfg)
+        self._fused = not self._edge
         self._tile_count = 1
         self._defer_tiles = None
+        self._defer_waves = None
 
     # --- batched wave compute on the torch device ------------------------------
-    def _wave_compute(self, plane: int, xs, ys, size, cands, htr, hbl,
-                      forced=None, cfl_luma=None):
-        """All blocks of one wave: mode decision + T/Q/IQ/recon.
-        cands: [(mode, angle_delta)] candidate list; htr/hbl: [B]
-        above-right / bottom-left availability. ``forced``: (modes [B],
-        deltas [B]) to reuse instead of deciding (the V plane reuses the
-        uv choice made on U — one shared chroma mode). ``cfl_luma``:
-        co-located luma recon [B, 2s, 2s] (chroma planes, CfL-eligible).
-        Returns (modes [B], deltas [B], qcoeff [B,ch,cw], eob [B],
-        alphas [B], tx types [B])."""
+    def _wave_compute(self, plane: int, parts, size, cands, forced=None,
+                      cfl_luma=None, ftype=None):
+        """Blocks of one wave, one leaf shape, from one or more tiles:
+        mode decision + T/Q/IQ/recon in one device call. parts: per tile
+        (tile, xs [b], ys [b], htr [b], hbl [b]), plane pixel positions
+        and above-right / bottom-left availability inside the tile
+        (``tile``: a per-wave tile record, see ``_wave_tile``). ``forced``:
+        (modes [B], deltas [B]) to reuse instead of deciding (the V plane
+        reuses the uv choice made on U — one shared chroma mode).
+        ``cfl_luma``: co-located luma recon [B, 2s, 2s] (chroma planes,
+        CfL-eligible). ``ftype``: [B] filt_type of the intra edge filter
+        (None: off). B is the parts' lanes in order. Returns (modes,
+        deltas, qcoeff [B,ch,cw], eob, alphas, tx types), all [B]."""
         cfg = self.cfg
         bw, bh = common.leaf_wh(size)
-        recon = self.recon[plane]
-        src = self.src[plane]
-        max_w, max_h = self.max_wh[plane]
-        ha, hl = ys > 0, xs > 0
-        above1, left1 = intra_ops.prepare_edges_av1(
-            recon, xs, ys, bw, bh, ha, hl, htr, hbl,
-            bd=cfg.bit_depth, max_w=max_w, max_h=max_h)
-        srcs = np.stack([src[y:y + bh, x:x + bw]
-                         for x, y in zip(xs, ys)]).astype(np.int64)
+        per_tile = []
+        for tile, xs, ys, htr, hbl in parts:
+            src = tile["src"][plane]
+            max_w, max_h = tile["max_wh"][plane]
+            ha, hl = ys > 0, xs > 0
+            above1, left1 = intra_ops.prepare_edges_av1(
+                tile["recon"][plane], xs, ys, bw, bh, ha, hl, htr, hbl,
+                bd=cfg.bit_depth, max_w=max_w, max_h=max_h)
+            # the real sample counts (spec numPx = Min(w, MaxX - x + 1))
+            per_tile.append((
+                np.stack([src[y:y + bh, x:x + bw] for x, y in zip(xs, ys)]),
+                above1, left1, ha, hl, np.clip(max_w - xs, 0, bw),
+                np.clip(max_h - ys, 0, bh)))
+        srcs, above1, left1, ha, hl, n_top, n_left = (
+            np.concatenate(a) for a in zip(*per_tile))
+        edge = None if ftype is None else (ftype, n_top, n_left)
         best, deltas, qcoeff, eob, recon_blocks, _, alphas, tts = \
             decide_block_batch_dev(
-                plane, srcs, above1, left1, ha, hl, cands, self.qp, size,
-                self.lam, bd=cfg.bit_depth, nfl=cfg.nfl, forced=forced,
-                cfl_luma=cfl_luma,
+                plane, srcs.astype(np.int64), above1, left1, ha, hl, cands,
+                self.qp, size, self.lam, bd=cfg.bit_depth, nfl=cfg.nfl,
+                forced=forced, cfl_luma=cfl_luma,
                 tx_search=(plane == 0 and cfg.enable_tx_type_search
                            and cfg.base_q_idx > 0),
-                rdoq=cfg.enable_rdoq, device=cfg.device)
-        for i, (x, y) in enumerate(zip(xs, ys)):
-            recon[y:y + bh, x:x + bw] = recon_blocks[i]
+                rdoq=cfg.enable_rdoq, edge=edge, device=cfg.device)
+        i = 0
+        for tile, xs, ys, _, _ in parts:
+            recon = tile["recon"][plane]
+            for x, y in zip(xs, ys):
+                recon[y:y + bh, x:x + bw] = recon_blocks[i]
+                i += 1
         return best, deltas, qcoeff, eob, alphas, tts
 
     # --- leaf enumeration + dependency waves ----------------------------------
@@ -195,6 +214,10 @@ class WavefrontIntraEncoder:
         # program whose step w runs wave w of every tile (the JAX gate; the
         # port's config refuses AQ, so there is no qmap)
         self._defer_tiles = [] if self._fused and len(rects) > 1 else None
+        # the per-wave loop likewise runs wave w of every tile as one step
+        # (tiles share no prediction edge, so the lanes are independent)
+        self._defer_waves = [] if not self._fused and len(rects) > 1 \
+            else None
         for rect in rects:
             mi_r0, mi_c0 = rect[0], rect[1]
             self._enter_tile(frame_src, frame_recon, rect)
@@ -214,6 +237,11 @@ class WavefrontIntraEncoder:
                     self, self._defer_tiles, frame_src, frame_recon,
                     common.intra_candidates(cfg))
         self._defer_tiles = None
+        if self._defer_waves:
+            with span("waves", tiles=len(self._defer_waves)):
+                self._wave_loop(self._defer_waves,
+                                common.intra_candidates(cfg))
+        self._defer_waves = None
         if len(rects) == 1 and isinstance(self.recon[0], torch.Tensor):
             frame_recon = self.recon    # the tile's program kept it there
 
@@ -273,6 +301,12 @@ class WavefrontIntraEncoder:
         self.qcoeff = [[None] * n, [None] * n, [None] * n]
         self.eobs = np.zeros((3, n), dtype=np.int32)
         self.y_tx_type = np.zeros(n, dtype=np.int32)
+        # neighbour-smoothness maps of the intra edge filter's filt_type,
+        # tile-local like every availability rule: luma per mi, chroma
+        # per chroma 4 px (2 mi)
+        self._sm_y = np.zeros((self.mi_rows, self.mi_cols), dtype=bool)
+        self._sm_uv = np.zeros(((self.mi_rows + 1) >> 1,
+                                (self.mi_cols + 1) >> 1), dtype=bool)
 
         if self._fused:
             if self._defer_tiles is not None:
@@ -285,66 +319,112 @@ class WavefrontIntraEncoder:
                     return
                 if device_tile.analyze_tile_fused_mixed(self, cands):
                     return
+        tile = self._wave_tile(leaves)
+        if self._defer_waves is not None:
+            self._defer_waves.append(tile)
+            return
         with span("waves"):
-            self._wave_loop(leaves, cands)
+            self._wave_loop([tile], cands)
 
-    def _wave_loop(self, leaves, cands) -> None:
-        """The per-wave loop: per wave and leaf shape, one device decide
-        per plane on host-prepared edges."""
-        waves = self._dependency_waves(leaves, self.mi_cols, self.mi_rows)
-        n = len(leaves)
+    def _wave_tile(self, leaves) -> dict:
+        """The current tile as the per-wave loop sees it: its planes and
+        pixel bounds, its decision arrays (the same objects the tile's
+        state keeps, so the loop's writes land there), its smoothness
+        maps, and per leaf its (mi_row, mi_col, w, h), dependency wave,
+        shape key and above-right / bottom-left availability."""
         larr = np.array([(r, c, wh[0], wh[1]) for r, c, wh in leaves],
-                        dtype=np.int64)
+                        dtype=np.int64).reshape(-1, 4)
         vab_all = [avail.leaf_vert_ab(
             self.leaf_sizes, r, c, wh[0] >> 2, wh[1] >> 2,
             self.mi_rows, self.mi_cols) for r, c, wh in leaves]
-        htr_all = np.array([avail.has_top_right_wh(
-            r, c, wh[0] >> 2, wh[1] >> 2, self.mi_cols, vert_ab=vab)
-            for (r, c, wh), vab in zip(leaves, vab_all)])
-        hbl_all = np.array([avail.has_bottom_left_wh(
-            r, c, wh[0] >> 2, wh[1] >> 2, self.mi_rows, vert_ab=vab)
-            for (r, c, wh), vab in zip(leaves, vab_all)])
-        shape_key = larr[:, 2] * 1000 + larr[:, 3]
-        for wv in range(int(waves.max()) + 1 if n else 0):
-            in_wave = np.nonzero(waves == wv)[0]
-            for sk in np.unique(shape_key[in_wave]):
-                ids = in_wave[shape_key[in_wave] == sk]
-                self._code_wave(ids, int(sk) // 1000, int(sk) % 1000,
-                                larr, htr_all, hbl_all, cands)
+        tile = {k: getattr(self, k) for k in
+                ("src", "recon", "max_wh", "y_mode", "uv_mode", "y_delta",
+                 "uv_delta", "alpha_u", "alpha_v", "qcoeff", "eobs",
+                 "y_tx_type", "_sm_y", "_sm_uv")}
+        tile.update(
+            larr=larr,
+            waves=self._dependency_waves(leaves, self.mi_cols, self.mi_rows),
+            shape_key=larr[:, 2] * 1000 + larr[:, 3],
+            htr=np.array([avail.has_top_right_wh(
+                r, c, wh[0] >> 2, wh[1] >> 2, self.mi_cols, vert_ab=vab)
+                for (r, c, wh), vab in zip(leaves, vab_all)], dtype=bool),
+            hbl=np.array([avail.has_bottom_left_wh(
+                r, c, wh[0] >> 2, wh[1] >> 2, self.mi_rows, vert_ab=vab)
+                for (r, c, wh), vab in zip(leaves, vab_all)], dtype=bool))
+        return tile
 
-    def _code_wave(self, ids, bw, bh, larr, htr_all, hbl_all, cands):
-        """Decide and code the leaves ``ids`` of one wave (all bw x bh):
-        luma, then U (which picks the chroma mode), then V (forced to U's
-        choice), storing decisions on self."""
-        xs = larr[ids, 1] * 4
-        ys = larr[ids, 0] * 4
-        htr, hbl = htr_all[ids], hbl_all[ids]
+    def _wave_loop(self, tiles, cands) -> None:
+        """The per-wave loop over ``tiles`` (``_wave_tile`` records): step w
+        codes wave w of every tile, one device decide per plane and leaf
+        shape over all tiles' lanes of that shape, on host-prepared
+        edges."""
+        n_waves = max((int(t["waves"].max()) + 1 for t in tiles
+                       if len(t["waves"])), default=0)
+        for wv in range(n_waves):
+            groups = {}
+            for t in tiles:
+                in_wave = np.nonzero(t["waves"] == wv)[0]
+                keys = t["shape_key"][in_wave]
+                for sk in np.unique(keys):
+                    groups.setdefault(int(sk), []).append(
+                        (t, in_wave[keys == sk]))
+            for sk in sorted(groups):
+                self._code_wave(groups[sk], sk // 1000, sk % 1000, cands)
+
+    def _code_wave(self, parts, bw, bh, cands):
+        """Decide and code the leaves of one wave, all bw x bh, given per
+        tile as (tile, leaf ids): luma, then U (which picks the chroma
+        mode), then V (forced to U's choice), storing the decisions in
+        each tile's arrays."""
+        lanes = [(t, t["larr"][ids, 1] * 4, t["larr"][ids, 0] * 4,
+                  t["htr"][ids], t["hbl"][ids]) for t, ids in parts]
+        half = [(t, xs >> 1, ys >> 1, htr, hbl)
+                for t, xs, ys, htr, hbl in lanes]
+        fty = ftuv = None
+        if self._edge:
+            rc = [(t["larr"][ids, 0], t["larr"][ids, 1]) for t, ids in parts]
+            fty = np.concatenate([_ftype_from(t["_sm_y"], r, c)
+                                  for (t, _), (r, c) in zip(parts, rc)])
+            ftuv = np.concatenate([_ftype_from(t["_sm_uv"], r >> 1, c >> 1)
+                                   for (t, _), (r, c) in zip(parts, rc)])
         best, bdel, qc, eo, _, ytt = self._wave_compute(
-            0, xs, ys, (bw, bh), cands, htr, hbl)
-        self.y_mode[ids] = best
-        self.y_delta[ids] = bdel
-        self.eobs[0, ids] = eo
-        self.y_tx_type[ids] = ytt
+            0, lanes, (bw, bh), cands, ftype=fty)
         cfl_luma = None
         if bw <= 32 and bh <= 32:  # cfl_allowed
-            cfl_luma = np.stack([self.recon[0][y:y + bh, x:x + bw]
-                                 for x, y in zip(xs, ys)])
+            cfl_luma = np.concatenate([
+                np.stack([t["recon"][0][y:y + bh, x:x + bw]
+                          for x, y in zip(xs, ys)])
+                for t, xs, ys, _, _ in lanes])
         bestc, cdel, qcc, eoc, au, _ = self._wave_compute(
-            1, xs >> 1, ys >> 1, (bw >> 1, bh >> 1), cands, htr, hbl,
-            cfl_luma=cfl_luma)
-        self.uv_mode[ids] = bestc
-        self.uv_delta[ids] = cdel
-        self.alpha_u[ids] = au
-        self.eobs[1, ids] = eoc
+            1, half, (bw >> 1, bh >> 1), cands, cfl_luma=cfl_luma,
+            ftype=ftuv)
         _, _, qcv, eov, av, _ = self._wave_compute(
-            2, xs >> 1, ys >> 1, (bw >> 1, bh >> 1), cands, htr, hbl,
-            forced=(bestc, cdel), cfl_luma=cfl_luma)
-        self.alpha_v[ids] = av
-        self.eobs[2, ids] = eov
-        for k, i in enumerate(ids):
-            self.qcoeff[0][i] = qc[k]
-            self.qcoeff[1][i] = qcc[k]
-            self.qcoeff[2][i] = qcv[k]
+            2, half, (bw >> 1, bh >> 1), cands, forced=(bestc, cdel),
+            cfl_luma=cfl_luma, ftype=ftuv)
+        k0 = 0
+        for t, ids in parts:
+            sl = slice(k0, k0 + len(ids))
+            k0 += len(ids)
+            if self._edge:
+                rows, cols = t["larr"][ids, 0], t["larr"][ids, 1]
+                _mark_smooth(t["_sm_y"], rows, cols, best[sl], bw >> 2,
+                             bh >> 2)
+                _mark_smooth(t["_sm_uv"], rows >> 1, cols >> 1, bestc[sl],
+                             max(1, bw >> 3), max(1, bh >> 3))
+            t["y_mode"][ids] = best[sl]
+            t["y_delta"][ids] = bdel[sl]
+            t["eobs"][0, ids] = eo[sl]
+            t["y_tx_type"][ids] = ytt[sl]
+            t["uv_mode"][ids] = bestc[sl]
+            t["uv_delta"][ids] = cdel[sl]
+            t["alpha_u"][ids] = au[sl]
+            t["eobs"][1, ids] = eoc[sl]
+            t["alpha_v"][ids] = av[sl]
+            t["eobs"][2, ids] = eov[sl]
+            for k, i in zip(range(sl.start, sl.stop), ids):
+                t["qcoeff"][0][i] = qc[k]
+                t["qcoeff"][1][i] = qcc[k]
+                t["qcoeff"][2][i] = qcv[k]
 
     def _package_compute(self, frame_src, frame_recon, frame_leaves,
                          tile_states):
@@ -508,3 +588,22 @@ class WavefrontIntraEncoder:
                 dc_sign_ctx=sign_ctx, intra_dir=m,
                 base_qindex=cfg.base_q_idx)
             self.ctxs.update_txb_ctx(p, x4, y4, ts, cul)
+
+
+def _ftype_from(sm: np.ndarray, rows: np.ndarray,
+                cols: np.ndarray) -> np.ndarray:
+    """Per-lane filt_type from a smoothness map (reference get_filt_type:
+    above or left neighbour smooth -> 1; unavailable neighbours count as
+    non-smooth)."""
+    above = np.where(rows > 0, sm[np.maximum(rows - 1, 0), cols], False)
+    left = np.where(cols > 0, sm[rows, np.maximum(cols - 1, 0)], False)
+    return (above | left).astype(np.int32)
+
+
+def _mark_smooth(sm: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+                 modes: np.ndarray, mw: int, mh: int) -> None:
+    """Record SMOOTH-family decisions into a smoothness map over each
+    block's extent (``rows``/``cols``/``mw``/``mh`` in the map's units)."""
+    for r0, c0, m in zip(rows, cols, modes):
+        if intra_dir.is_smooth_mode(int(m)):
+            sm[r0:r0 + mh, c0:c0 + mw] = True

@@ -10,6 +10,7 @@ JAX:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -19,12 +20,11 @@ import torch
 from svt_av1_tpu_torch.ops import device as dev
 from svt_av1_tpu_torch.ops import device_md as tmd
 from svt_av1_tpu_torch.ops import quant as quant_ops
-from svt_av1_tpu_torch.utils.blocks import (TX_4X4, TX_8X8, TX_16X16,
-                                            TX_32X32, get_scan)
-from tests.torch_quant_cases import TIE_ROWS, stage_case, stage_rows
+from svt_av1_tpu_torch.utils.blocks import TX_4X4, TX_16X16, get_scan
+from tests.torch_quant_cases import (ROW_LENGTHS, TIE_ROWS, stage_case,
+                                     stage_rows, tx_size_for)
 
 pytestmark = pytest.mark.cuda
-TX_OF_N = {16: TX_4X4, 64: TX_8X8, 256: TX_16X16, 1024: TX_32X32}
 
 
 @pytest.fixture
@@ -44,10 +44,10 @@ def _case(n, seed, b):
     return coeff, qv
 
 
-@pytest.mark.parametrize("n", [16, 64, 256, 1024])
+@pytest.mark.parametrize("n", ROW_LENGTHS)
 def test_quantize_qv_kernel_matches_plain(cuda, n):
-    scan = get_scan(TX_OF_N[n], 0)
     for ls in (0, 1, 2):
+        scan = get_scan(tx_size_for(n, ls), 0)
         coeff, qv = _case(n, seed=3 * n + ls, b=1001)
         c = torch.as_tensor(coeff, device=cuda)
         q = torch.as_tensor(qv, device=cuda)
@@ -80,7 +80,7 @@ def test_quantize_qv_kernel_refuses_bad_operands(cuda):
     assert q_.shape == (0, 16) and eob.shape == (0,)
 
 
-@pytest.mark.parametrize("n", [16, 64, 256, 1024])
+@pytest.mark.parametrize("n", ROW_LENGTHS)
 def test_quant_stage_kernel_matches_plain(cuda, n):
     """Both modes of the kernel against their plain versions on the card
     and on the CPU, exact, over log_scale, plane type, RDOQ on/off and
@@ -113,6 +113,29 @@ def test_quant_stage_kernel_matches_plain(cuda, n):
                         assert g.dtype == w.dtype and g.shape == w.shape
                         assert torch.equal(g, w)
                         assert torch.equal(g.cpu(), h)
+
+
+@pytest.mark.parametrize("n", [32, 128, 512])
+def test_rect_row_lengths_at_frame_batches(cuda, n):
+    """The rectangular transforms' row lengths (4x8/8x4, 8x16/16x8,
+    16x32 up to 64x16) in all three modes at B = 1, 37 and 8160, exact
+    against the plain versions."""
+    for ls in (0, 1, 2):
+        for b in (1, 37, 8160):
+            coeff, qv, lam, scan, tx = stage_rows(n, ls, b, 3 * n + ls + b)
+            c, q, lm = (torch.as_tensor(a, device=cuda)
+                        for a in (coeff, qv, lam))
+            for g, w in zip(dev.quantize_qv(c, scan, q, ls, 8),
+                            dev.quantize_qv_plain(c, scan, q, ls, 8)):
+                assert torch.equal(g, w)
+            for plane_type in (0, 1):
+                for rl in (None, lm):
+                    got = tmd.quant_stage_j(c, scan, q, ls, 8, tx,
+                                            plane_type, rl)
+                    want = tmd.quant_stage_plain(c, scan, q, ls, 8, tx,
+                                                 plane_type, rl)
+                    for g, w in zip(got, want):
+                        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_full_loop_pass_is_one_launch_on_card(cuda):
@@ -457,4 +480,77 @@ def test_inter_encode_on_card_equals_cpu(cuda):
         width=448, height=128, preset=5, intra_period=-1,
         hierarchical_levels=3, tile_columns=2, device=d))
         for d in ("cuda", "cpu")}
+    assert ivf["cuda"] == ivf["cpu"]
+
+
+def _streams(frames, **options):
+    """encode_ivf of ``frames`` on cuda and on the CPU, with the per-wave
+    loop's calls on each device counted."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.pipeline import wavefront as twf
+    from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
+    h, w = frames[0][0].shape
+    orig = twf.WavefrontIntraEncoder._code_wave
+    ivf, waves = {}, {}
+    for d in ("cuda", "cpu"):
+        n = []
+
+        def spy(self, *a, **k):
+            n.append(self._edge)
+            return orig(self, *a, **k)
+
+        twf.WavefrontIntraEncoder._code_wave = spy
+        try:
+            ivf[d] = encode_ivf(frames, preset_config(
+                width=w, height=h, device=d, **options))
+        finally:
+            twf.WavefrontIntraEncoder._code_wave = orig
+        waves[d] = n
+    return ivf, waves
+
+
+def test_directional_all_intra_on_card_equals_cpu(cuda):
+    """Preset 2 (the CLI default) all-intra at 448x128 with 4 tile
+    columns: every key frame through the per-wave loop with the intra
+    edge filter, on the card as on the CPU, byte for byte."""
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=128, frames=2, seed=3)
+    ivf, waves = _streams(frames, preset=2, intra_period=0, tile_columns=2)
+    assert waves["cuda"] and all(waves["cuda"])
+    assert len(waves["cuda"]) == len(waves["cpu"])
+    assert ivf["cuda"] == ivf["cpu"]
+
+
+def test_directional_ra_on_card_equals_cpu(cuda):
+    """Preset 2 random access, hier-3, 9 frames at 448x128: the inter
+    frames' rect shape groups and intra flips on the card."""
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=128, frames=9, seed=3)
+    ivf, waves = _streams(frames, preset=2, intra_period=-1,
+                          hierarchical_levels=3, tile_columns=2)
+    assert waves["cuda"] and all(waves["cuda"])
+    assert ivf["cuda"] == ivf["cpu"]
+
+
+def test_preset3_rect_classes_on_card_equal_cpu(cuda):
+    """Preset 3 all-intra at 448x128: the fused frame program with rect
+    leaf classes (row lengths 32, 128, 512 in the kernel)."""
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=128, frames=1, seed=3)
+    before = collections.Counter(dev.LAUNCH_SHAPES)
+    ivf, waves = _streams(frames, preset=3, intra_period=0, tile_columns=2)
+    ns = {k[2] for k in collections.Counter(dev.LAUNCH_SHAPES) - before}
+    assert ns & {32, 128, 512}, ns
+    assert not waves["cuda"]
+    assert ivf["cuda"] == ivf["cpu"]
+
+
+def test_10bit_all_intra_on_card_equals_cpu(cuda):
+    """A 10-bit preset-5 all-intra stream (the frame program and DLF at
+    10 bits) on the card equals the CPU's."""
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = [tuple(p.astype(np.uint16) << 2 for p in f)
+              for f in make_clip(w=448, h=128, frames=2, seed=3)]
+    ivf, _ = _streams(frames, preset=5, intra_period=0, bit_depth=10,
+                      tile_columns=2)
     assert ivf["cuda"] == ivf["cpu"]

@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 
 from svt_av1_tpu.app.cli import preset_config as jax_preset_config
-from svt_av1_tpu.pipeline.common import edge_filter_active
 from svt_av1_tpu.pipeline.encoder import encode_ivf as jax_encode_ivf
 from svt_av1_tpu_torch.app.cli import preset_config
 from svt_av1_tpu_torch.convert import config_from_jax
@@ -22,7 +21,8 @@ from svt_av1_tpu_torch.utils.clip import make_clip
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # all 13 intra modes with angle deltas: zones 1, 2 and 3 of the
-# directional predictor (the edge filter is off — a later slice)
+# directional predictor without the edge filter (the fused frame program;
+# tests/test_torch_directional.py runs it with the filter)
 DIRECTIONAL = dict(fixed_partition_size=16, nfl=3,
                    intra_modes=tuple(range(13)), angle_deltas=(-2, 0, 3),
                    enable_intra_edge_filter=False)
@@ -69,10 +69,8 @@ def test_preset_config_matches_jax():
                 width=1920, height=1080, preset=preset, intra_period=0,
                 device="cpu"))
         except NotImplementedError:
-            # CDEF/LR (presets 0/1) and the directional edge filter
-            # (presets 0..3) come with later slices of the port
-            assert (jcfg.enable_cdef or jcfg.enable_restoration
-                    or edge_filter_active(jcfg)), preset
+            # CDEF/LR (presets 0/1) come with later slices of the port
+            assert jcfg.enable_cdef or jcfg.enable_restoration, preset
             continue
         got.pop("device")
         assert got == want, preset

@@ -113,10 +113,21 @@ def test_config_from_jax_round_trips():
     ("enable_restoration", True), ("adaptive_quantization", 1),
     ("target_bit_rate", 1000000), ("film_grain_strength", 10),
     ("enable_source_denoise", True), ("mesh_shape", (1, 2)),
-    ("intra_dp_satd", True), ("intra_modes", tuple(range(13)))])
+    ("intra_dp_satd", True), ("rate_control_mode", 1)])
 def test_later_slices_raise_not_implemented(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         EncoderConfig(**{**INTRA, field: value})
+
+
+def test_directional_configs_are_accepted():
+    """The intra edge filter's configs run: EncoderConfig()'s defaults
+    (13 modes, filter on) and preset 2, the CLI default."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.pipeline.common import edge_filter_active
+    for cfg in (EncoderConfig(**{**INTRA, "intra_modes": tuple(range(13))}),
+                EncoderConfig(),
+                preset_config(width=1920, height=1080, device="cpu")):
+        assert edge_filter_active(cfg)
 
 
 @pytest.mark.parametrize("field,value", [("intra_period", -1),

@@ -18,11 +18,9 @@ from svt_av1_tpu.ops import device as jdev
 from svt_av1_tpu.ops import device_md as _jdmd  # noqa: F401
 from svt_av1_tpu.ops import quant as jquant
 from svt_av1_tpu_torch.ops import device as dev
-from svt_av1_tpu_torch.utils.blocks import (TX_4X4, TX_8X8, TX_16X16,
-                                            TX_32X32, get_scan)
+from svt_av1_tpu_torch.utils.blocks import TX_4X4, TX_8X8, get_scan
+from tests.torch_quant_cases import ROW_LENGTHS, tx_size_for
 from tests.torch_threads import one_torch_thread  # noqa: F401
-
-TX_OF_N = {16: TX_4X4, 64: TX_8X8, 256: TX_16X16, 1024: TX_32X32}
 EXTREME = (0, 32767, -32767, 1 << 20, -(1 << 20), 1, -1)
 
 
@@ -46,10 +44,10 @@ def _port(coeff, scan, qv, ls):
 
 
 @pytest.mark.parametrize("ls", [0, 1, 2])
-@pytest.mark.parametrize("n", [16, 64, 256, 1024])
+@pytest.mark.parametrize("n", ROW_LENGTHS)
 def test_quantize_qv_matches_jax(n, ls):
     coeff, qv = _case(n, seed=n + ls)
-    scan = get_scan(TX_OF_N[n], 0)
+    scan = get_scan(tx_size_for(n, ls), 0)
     got = _port(coeff, scan, qv, ls)
     want = jdev.quantize_qv(jnp.asarray(coeff), scan, jnp.asarray(qv), ls, 8)
     for name, g, w in zip(("q", "dq", "eob"), got, want):
@@ -62,7 +60,7 @@ def test_quantize_qv_matches_jax(n, ls):
 def test_quantize_qv_matches_pallas(n, ls, qidx):
     coeff, _ = _case(n, seed=7 * n + ls, b=9)
     qv = np.full(len(coeff), qidx, np.int32)
-    scan = get_scan(TX_OF_N[n], 0)
+    scan = get_scan(tx_size_for(n, ls), 0)
     got = _port(coeff, scan, qv, ls)
     want = jdev.quantize_pallas(jnp.asarray(coeff), scan,
                                 jquant.make_quant_params(qidx), ls)

@@ -7,10 +7,14 @@ kernel against its plain version on the card).
 import numpy as np
 
 from svt_av1_tpu_torch.pipeline import md, rd
-from svt_av1_tpu_torch.utils.blocks import (TX_4X4, TX_8X8, TX_16X16,
-                                            TX_32X32, TX_64X64, get_scan)
+from svt_av1_tpu_torch.utils.blocks import (TX_4X4, TX_8X4, TX_8X8,
+                                            TX_16X8, TX_16X16, TX_16X32,
+                                            TX_32X32, TX_64X16, TX_64X64,
+                                            get_scan)
 
-ROW_LENGTHS = (16, 64, 256, 1024)
+# every row length the full loop gives the stage: the squares' coded
+# coefficients and the rectangles' (32, 128 and 512)
+ROW_LENGTHS = (16, 32, 64, 128, 256, 512, 1024)
 # the rows at the front of every case
 ZERO_ROW, BIG_ROW, NEG_BIG_ROW, CLAMP_ROW, INT_MIN_ROW, DC_ROW = range(6)
 TIE_ROWS = range(6, 10)
@@ -19,10 +23,14 @@ N_SPECIAL = 10
 
 def tx_size_for(n: int, log_scale: int) -> int:
     """A tx size with n coded coefficients (64x64 for n=1024 at
-    log_scale 2, so gq12 takes all three of its values over the grid)."""
+    log_scale 2, so gq12 takes all three of its values over the grid, and
+    64x16, whose 64-point side keeps 32, for n=512 at log_scale 2)."""
     if n == 1024 and log_scale == 2:
         return TX_64X64
-    return {16: TX_4X4, 64: TX_8X8, 256: TX_16X16, 1024: TX_32X32}[n]
+    if n == 512 and log_scale == 2:
+        return TX_64X16
+    return {16: TX_4X4, 32: TX_8X4, 64: TX_8X8, 128: TX_16X8,
+            256: TX_16X16, 512: TX_16X32, 1024: TX_32X32}[n]
 
 
 def stage_case(n: int, log_scale: int, b: int, seed: int):
