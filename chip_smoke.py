@@ -48,15 +48,24 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    edge-filtered predictor and the fused kernel must have run; the key
    frame's time, the spans, the wave and (wave, shape) counts and the
    kernel's launches by mode and row length are printed;
-7. each mode and row length timed at the heaviest shape the three
+7. ``[postfilter]``, the in-loop post-filters: the random-access clip of
+   5 again with CDEF and loop restoration turned on (the two filters of
+   preset 0 on the library's ``EncoderConfig``), through ``encode_ivf``
+   on ``cuda``, whose sha256 must equal the JAX package's
+   (``GOLDEN_PF_*``), with spans ``cdef`` and ``lr`` once on each of the
+   9 frames; the total, key-frame and inter times, per frame the two
+   spans, the CDEF strengths chosen and the LR frame types per plane,
+   and one inter frame's CDEF + LR replayed under torch.profiler for the
+   card's busy share;
+8. each mode and row length timed at the heaviest shape the four
    encodes gave it; one whole fused key frame program (the all-intra
    clip's last key frame, replayed plain for its wall and under
    torch.profiler for its device busy time and device operations),
    beside it one wave of the per-wave path through
    ``decide_block_batch_dev``, and one (step, shape) group of the
    directional key frame replayed under torch.profiler;
-8. a ``{"kernels": [...]}`` line, one entry per mode and row length
-   (``launches``: the sum over the three encodes; ``launches_by_path``:
+9. a ``{"kernels": [...]}`` line, one entry per mode and row length
+   (``launches``: the sum over the four encodes; ``launches_by_path``:
    each encode's own count, and the RA encode's inside its inter frames),
    the card's line, and last the device line.
 
@@ -100,6 +109,13 @@ GOLDEN_DIR_SHA256 = \
     "29f15e2d04c26721ee4d6eed4a574dad929aa8ee31f26845bbad07badeb6de69"
 GOLDEN_DIR_BYTES = 372813
 DIR_PRESET = 2
+# the JAX package's stream of the post-filter phase: encode_ivf(backend=
+# "host") on make_clip(1920, 1080, frames=9, seed=3), preset 5, qp 40,
+# intra_period -1, hierarchical_levels 3 (4 tile columns by width), with
+# enable_cdef=True and enable_restoration=True
+GOLDEN_PF_SHA256 = \
+    "6d3f3695b5405f93708c34194e70ff2c5767b21e6b0ee51a3a4d7950b0e68986"
+GOLDEN_PF_BYTES = 417146
 # synthetic large-batch checks at the most rows a 1080p shape group can
 # give the quantization stage: the [2B] single-ref pair of 8160 16x16 luma
 # blocks (n = 256) and U+V of their 8x8 chroma. The RA clip's partition DP
@@ -804,6 +820,173 @@ def phase_inter(torch, check_keyframes: bool = True):
             "spans": spans}, shapes, inter_shapes, biggest
 
 
+def _clone(p):
+    return p.clone() if hasattr(p, "clone") else p.copy()
+
+
+def _pf_record(idx_map, cdef_kw, rinfos) -> dict:
+    """One frame's post-filter choices: the CDEF strength set and how many
+    SBs took each entry (-1: no coded block), the LR frame types per plane
+    and the per-unit types of each plane."""
+    import numpy as np
+    vals, counts = np.unique(idx_map, return_counts=True)
+    return {"cdef_y_strengths": list(cdef_kw["cdef_y_strengths"]),
+            "cdef_uv_strengths": list(cdef_kw["cdef_uv_strengths"]),
+            "cdef_damping": cdef_kw["cdef_damping"],
+            "cdef_sbs_per_entry": {int(v): int(c)
+                                   for v, c in zip(vals, counts)},
+            "lr_types": [ri.frame_restoration_type for ri in rinfos],
+            "lr_unit_types": [dict(collections.Counter(
+                u.restoration_type for u in ri.units)) for ri in rinfos]}
+
+
+def phase_postfilter(torch):
+    """The random-access clip with CDEF and LR on every frame. Returns
+    (result, {(mode, B, n, log_scale): launches}, the first inter frame's
+    post-filter arguments for the profiled replay)."""
+    import dataclasses
+
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.pipeline import postfilter as tpf
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=WIDTH, h=HEIGHT, frames=RA_FRAMES, seed=3)
+    cfg = dataclasses.replace(preset_config(
+        width=WIDTH, height=HEIGHT, qp=QP, preset=PRESET, intra_period=-1,
+        hierarchical_levels=RA_LEVELS, device="cuda"),
+        enable_cdef=True, enable_restoration=True)
+    per_frame, replay = [], {}
+
+    def pf_spy(fn):
+        """Each frame's choices; the first inter frame's pre-filter
+        planes (one clone of 3 planes inside the timed run)."""
+        def call(cfg_, recon, src, tiles, *a):
+            if len(per_frame) == 1:
+                replay["args"] = (cfg_, [_clone(p) for p in recon], src,
+                                  tiles) + a
+            out = fn(cfg_, recon, src, tiles, *a)
+            per_frame.append(_pf_record(out[0], out[1], out[2]))
+            return out
+        return call
+
+    ivf, dt, launches, shapes, plain_calls, tracer, keys = _encode_counted(
+        torch, frames, cfg, spies=((tpf, "run_postfilters", pf_spy),))
+    sha = hashlib.sha256(ivf).hexdigest()
+    spans = tracer.summary()
+    key_s = sum(s["dur"] for s in tracer.spans if s["stage"] == "keyframe")
+    n_inter = RA_FRAMES - 1
+    per_span = {st: [s["dur"] for s in tracer.spans if s["stage"] == st]
+                for st in ("cdef", "lr")}
+    print(f"[postfilter] {WIDTH}x{HEIGHT} random access hier-{RA_LEVELS} "
+          f"preset {PRESET} qp {QP} with CDEF and LR: {RA_FRAMES} frames in "
+          f"{dt:.2f} s ({dt / RA_FRAMES:.2f} s/frame), {len(ivf)} bytes, "
+          f"sha256 {sha}", flush=True)
+    print(f"[postfilter] key frame {key_s:.2f} s (its compute); inter "
+          f"frames {(dt - key_s) / n_inter:.3f} s/frame (wall after the key "
+          f"frame's compute, entropy drained, / {n_inter})", flush=True)
+    for i, rec in enumerate(per_frame):
+        cd = per_span["cdef"][i] if i < len(per_span["cdef"]) else 0.0
+        lr = per_span["lr"][i] if i < len(per_span["lr"]) else 0.0
+        print(f"[postfilter] frame {i} (coding order): cdef {cd:.4f} s, lr "
+              f"{lr:.4f} s; CDEF y {rec['cdef_y_strengths']} uv "
+              f"{rec['cdef_uv_strengths']} damping {rec['cdef_damping']}, "
+              f"SBs per entry {rec['cdef_sbs_per_entry']}; LR types Y/U/V "
+              f"{rec['lr_types']}, unit types {rec['lr_unit_types']}",
+              flush=True)
+    for stage in INTER_SPANS + ("cdef", "lr"):
+        v = spans.get(stage, {"count": 0, "total_s": 0.0})
+        print(f"[postfilter] span {stage}: {v['count']} x, {v['total_s']} s",
+              flush=True)
+    _check_stream("post-filter", ivf, sha, GOLDEN_PF_BYTES, GOLDEN_PF_SHA256)
+    for stage in ("cdef", "lr"):
+        if len(per_span[stage]) != RA_FRAMES:
+            raise SystemExit(f"span {stage} ran {len(per_span[stage])} "
+                             f"times, want once on each of {RA_FRAMES} "
+                             f"frames")
+    if len(per_frame) != RA_FRAMES:
+        raise SystemExit(f"the post-filters ran on {len(per_frame)} frames")
+    if launches.get("quant_stage_rdoq", 0) + launches.get("quant_stage",
+                                                           0) <= 0:
+        raise SystemExit("the post-filter encode never launched the fused "
+                         "kernel")
+    if plain_calls:
+        raise SystemExit(f"the plain trim or rate ran on the main path: "
+                         f"{plain_calls}")
+    print("[postfilter] stream equals the JAX golden; cdef and lr once on "
+          "each frame; plain rdoq_trim_j / _rate_cdf_j calls 0", flush=True)
+    key = _keyframe_report("postfilter", keys, tracer, TILES)
+    return {"seconds": dt, "seconds_per_frame": dt / RA_FRAMES,
+            "keyframe_compute_s": key_s, "keyframes": key,
+            "inter_s_per_frame": (dt - key_s) / n_inter,
+            "cdef_s": per_span["cdef"], "lr_s": per_span["lr"],
+            "frames": per_frame, "bytes": len(ivf), "sha256": sha,
+            "launches": launches, "launch_shapes": _shape_keys(shapes),
+            "plain_trim_rate_calls": plain_calls, "spans": spans}, \
+        shapes, replay
+
+
+def phase_postfilter_profile(torch, replay) -> dict:
+    """One inter frame's post-filters replayed from clones of its
+    deblocked planes: CDEF + LR together (``postfilter.run_postfilters``),
+    then CDEF alone and LR alone (on the CDEF output, with the boundary
+    lines of the deblocked planes). Each plain for its wall after a warm
+    call, and under torch.profiler (device activity only) for its device
+    busy ms and device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from svt_av1_tpu_torch.ops import device_cdef as tdc
+    from svt_av1_tpu_torch.ops import device_lr as tdl
+    from svt_av1_tpu_torch.pipeline import lr_search as tls
+    from svt_av1_tpu_torch.pipeline import postfilter as tpf
+    cfg, deblocked, src, tiles, mi_rows, mi_cols, lam = replay["args"]
+    bounds = [tdl.deblock_bounds_dev(deblocked[p], (cfg.height + (p > 0))
+                                     >> (p > 0), (cfg.width + (p > 0))
+                                     >> (p > 0), int(p > 0))
+              for p in range(3)]
+    skip8 = tpf.cdef_skip8(tiles, mi_rows, mi_cols)
+    bd, q = cfg.bit_depth, cfg.base_q_idx
+    cdefed = [_clone(p) for p in deblocked]
+    tdc.cdef_search_apply_dev(cdefed, src, skip8, mi_rows, mi_cols, q, bd,
+                              device="cuda")
+    runs = {
+        "cdef + lr": (deblocked, lambda pl: tpf.run_postfilters(
+            cfg, pl, src, tiles, mi_rows, mi_cols, lam)),
+        "cdef": (deblocked, lambda pl: tdc.cdef_search_apply_dev(
+            pl, src, skip8, mi_rows, mi_cols, q, bd, device="cuda")),
+        "lr": (cdefed, lambda pl: tls.search_restoration_dev(
+            pl, src, bounds, cfg.width, cfg.height, bd, q, lam,
+            device="cuda"))}
+    cuda = torch.autograd.DeviceType.CUDA
+    res = {}
+    for name, (planes, fn) in runs.items():
+        def once() -> float:
+            pl = [_clone(p) for p in planes]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(pl)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        once()                              # warm: caches, allocator
+        wall_ms = once()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prof_wall_ms = once()
+        dev_ns = [e.duration_ns()
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda]
+        busy_ms = sum(dev_ns) / 1e6
+        res[name] = {"wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
+                     "device_busy_ms": busy_ms,
+                     "device_busy_share": busy_ms / wall_ms if busy_ms
+                     else None, "device_ops": len(dev_ns)}
+        share = "not measured" if not busy_ms \
+            else f"{100 * busy_ms / wall_ms:.2f}% of the plain wall"
+        print(f"[postfilter-profile] one inter frame's {name} replayed: "
+              f"wall {wall_ms:.2f} ms plain, {prof_wall_ms:.2f} ms "
+              f"profiled; device busy {busy_ms:.3f} ms ({share}), "
+              f"{len(dev_ns)} device ops", flush=True)
+    return res
+
+
 def phase_group_profile(torch, biggest) -> dict:
     """The main path's largest shape group replayed once under
     torch.profiler: device operations, device busy ms, wall ms."""
@@ -1060,27 +1243,32 @@ def main() -> int:
         phase_inter(torch)
     dir_res, dir_shapes = phase_directional(torch)
     dir_groups = dir_res.pop("groups")
+    pf_res, pf_shapes, pf_replay = phase_postfilter(torch)
     by_path = {"all_intra": _by_mode_n(shapes),
                "random_access": _by_mode_n(inter_shapes),
                "ra_inter_frames": _by_mode_n(inter_frame_shapes),
-               "directional": _by_mode_n(dir_shapes)}
+               "directional": _by_mode_n(dir_shapes),
+               "postfilter": _by_mode_n(pf_shapes)}
     shapes = collections.Counter(shapes)
     shapes.update(inter_shapes)
     shapes.update(dir_shapes)
+    shapes.update(pf_shapes)
     kernels = kernel_entries(torch, by_path, shapes, env["int32_ops_per_s"])
     group_prof = phase_group_profile(torch, biggest)
     key_prof = phase_keyframe_profile(torch, replay)
     prof = phase_profile(torch, np)
     dir_prof = phase_directional_profile(torch, dir_groups)
+    pf_prof = phase_postfilter_profile(torch, pf_replay)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"env": env, "build": build, "kernel_grid": grid,
                    "slice": slice_res, "inter": inter_res,
-                   "directional": dir_res,
+                   "directional": dir_res, "postfilter": pf_res,
                    "kernels": kernels, "shape_group_profile": group_prof,
                    "keyframe_program_profile": key_prof,
                    "wave_profile": prof,
-                   "directional_group_profile": dir_prof}, f, indent=1)
+                   "directional_group_profile": dir_prof,
+                   "postfilter_profile": pf_prof}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

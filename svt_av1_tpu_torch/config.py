@@ -225,8 +225,6 @@ def _reject_later_slices(cfg: EncoderConfig) -> None:
         (inter and cfg.enable_interp_filter_search,
          "the interpolation-filter search of inter frames",
          "the non-fused inter slice"),
-        (cfg.enable_cdef, "CDEF", "the CDEF slice"),
-        (cfg.enable_restoration, "loop restoration", "the LR slice"),
         (cfg.adaptive_quantization != 0, "adaptive quantization",
          "the AQ slice"),
         (cfg.rate_control_mode != RateControlMode.CQP

@@ -837,6 +837,23 @@ def pix_dtype(bd: int) -> torch.dtype:
     return torch.uint8 if bd <= 8 else torch.int16
 
 
+def plane_i32(plane, device) -> torch.Tensor:
+    """A recon or source plane as int32: a numpy plane uploaded to
+    ``device``, a tensor on its own device."""
+    if isinstance(plane, torch.Tensor):
+        return plane.to(torch.int32)
+    return const(np.asarray(plane).astype(np.int32), device)
+
+
+def write_plane(dst, t: torch.Tensor, h: int, w: int) -> None:
+    """dst[:h, :w] = t in place, in dst's dtype (a numpy plane or a
+    tensor, which stays on its device)."""
+    if isinstance(dst, torch.Tensor):
+        dst[:h, :w] = t.to(dst.dtype)
+    else:
+        dst[:h, :w] = t.cpu().numpy().astype(dst.dtype)
+
+
 def dlf_search_apply_dev(recon_planes, src_planes, leaf_sizes, mi_rows,
                          mi_cols, qindex: int, bd: int = 8,
                          device="cuda"):

@@ -8,10 +8,11 @@ once: one fused shape-group step per block shape on the torch device
 result is read back. The intra-flip pass then re-decides poorly predicted
 blocks as intra (a batched decision on the device, then an exact recode in
 dependency waves, ``ops/device_tile.flip_apply_fused``), and the deblocking
-filter runs on the device-resident recon. Only the syntax pass is
-sequential host work: it walks coding order, builds the ref-MV stack from
-coded state (``pipeline.mvp``), canonicalizes each block's MV into
-NEAREST/NEAR/GLOBAL/NEWMV and emits bits.
+filter, then CDEF and loop restoration where the config enables them
+(``pipeline/postfilter.py``), run on the device-resident recon. Only the
+syntax pass is sequential host work: it walks coding order, builds the
+ref-MV stack from coded state (``pipeline.mvp``), canonicalizes each
+block's MV into NEAREST/NEAR/GLOBAL/NEWMV and emits bits.
 
 The JAX package's non-fused host path (``_encode_blocks``, the tx-type and
 interpolation-filter searches) and its host flip recode are later slices:
@@ -40,7 +41,7 @@ from svt_av1_tpu_torch.ops import device as dev_ops
 from svt_av1_tpu_torch.ops import device_inter as di
 from svt_av1_tpu_torch.ops import mc
 from svt_av1_tpu_torch.ops import quant as quant_ops
-from svt_av1_tpu_torch.pipeline import common, md, mvp
+from svt_av1_tpu_torch.pipeline import common, md, mvp, postfilter
 from svt_av1_tpu_torch.pipeline.intra import make_symbol_writer
 from svt_av1_tpu_torch.pipeline.mvp import (GLOBALMV, LAST_FRAME, NEARESTMV,
                                             NEARMV, NEWMV)
@@ -149,7 +150,7 @@ class InterFrameEncoder:
                        refresh_frame_flags: int = 0x01,
                        ref_frame_idx=(0,) * 7, show_frame: bool = True,
                        extra_refs=None):
-        """Decision + reconstruction + deblocking on the device; leaves
+        """Decision + reconstruction + in-loop filters on the device; leaves
         the syntax inputs on self for ``encode_syntax``. ref_planes: past
         reference recon [Y, U, V] (padded dims, host or device);
         alt_planes: optional future reference; extra_refs: additional
@@ -240,11 +241,12 @@ class InterFrameEncoder:
                     self.recon, self.src, self.leaf_sizes, self.mi_rows,
                     self.mi_cols, cfg.base_q_idx, cfg.bit_depth,
                     device=device)
-        self.lr_rinfos = None
-        self.cdef_idx_map = None
+        self.cdef_idx_map, self._cdef_kw, self.lr_rinfos, self._lr_kw = \
+            postfilter.run_postfilters(
+                cfg, self.recon, self.src,
+                [(self.leaf_sizes, self.leaf_index, self.eobs, 0, 0)],
+                self.mi_rows, self.mi_cols, self.lam)
         self._lf_levels = lf_levels
-        self._cdef_kw = {}
-        self._lr_kw = {}
         self._show_frame = show_frame
         self._refresh_frame_flags = refresh_frame_flags
         self._ref_frame_idx = tuple(ref_frame_idx)
@@ -724,6 +726,9 @@ class InterFrameEncoder:
         ref = int(self.block_ref[li])
         mode_syntax.write_skip(self.w, self.fc, self.ctxs, skip,
                                mi_row, mi_col)
+        postfilter.write_cdef_idx(self.w, self.cdef_idx_map,
+                                  self._cdef_written, mi_row, mi_col,
+                                  self.tile_mi_off, skip)
         if not self.block_is_inter[li]:
             self._emit_intra_block(mi_row, mi_col, size, li, skip)
             return

@@ -28,6 +28,7 @@ import torch
 from svt_av1_tpu_torch.bitstream import obu
 from svt_av1_tpu_torch.config import EncoderConfig
 from svt_av1_tpu_torch.entropy import coeff as coeff_syntax
+from svt_av1_tpu_torch.entropy import lr as lr_syntax
 from svt_av1_tpu_torch.entropy import modes as mode_syntax
 from svt_av1_tpu_torch.entropy.cdf import FrameContext
 from svt_av1_tpu_torch.entropy.ctx import TileContexts
@@ -37,7 +38,7 @@ from svt_av1_tpu_torch.ops import device_tile
 from svt_av1_tpu_torch.ops import quant as quant_ops
 from svt_av1_tpu_torch.ops.device import dlf_search_apply_dev
 from svt_av1_tpu_torch.ops.device_md import decide_block_batch_dev
-from svt_av1_tpu_torch.pipeline import avail, common, rd
+from svt_av1_tpu_torch.pipeline import avail, common, postfilter, rd
 from svt_av1_tpu_torch.pipeline.intra import make_symbol_writer
 from svt_av1_tpu_torch.utils.blocks import PARTITION_SPLIT
 from svt_av1_tpu_torch.utils.trace import span
@@ -428,7 +429,8 @@ class WavefrontIntraEncoder:
 
     def _package_compute(self, frame_src, frame_recon, frame_leaves,
                          tile_states):
-        """Deblocking on the device + display crop. Syntax inputs are
+        """The in-loop filters on the device (deblocking, then CDEF and LR
+        as the config enables them) + display crop. Syntax inputs are
         parked on ``self._pkg`` for ``package_syntax`` — which may run
         later on the encoder's entropy worker, off the compute thread."""
         cfg = self.cfg
@@ -439,13 +441,20 @@ class WavefrontIntraEncoder:
                     frame_recon, frame_src, frame_leaves, self.mi_rows,
                     self.mi_cols, cfg.base_q_idx, cfg.bit_depth,
                     device=cfg.device)
+        self.cdef_idx_map, cdef_kw, self.lr_rinfos, lr_kw = \
+            postfilter.run_postfilters(
+                cfg, frame_recon, frame_src,
+                [(st["leaf_sizes"], st["leaf_index"], st["eobs"],
+                  st["rect"][0], st["rect"][1]) for st in tile_states],
+                self.mi_rows, self.mi_cols, self.lam)
         recon = [frame_recon[0][:cfg.height, :cfg.width],
                  frame_recon[1][:(cfg.height + 1) // 2,
                                 :(cfg.width + 1) // 2],
                  frame_recon[2][:(cfg.height + 1) // 2,
                                 :(cfg.width + 1) // 2]]
         self._pkg = dict(tile_states=tile_states, lf_levels=lf_levels,
-                         frame_src=frame_src, frame_recon=frame_recon)
+                         cdef_kw=cdef_kw, lr_kw=lr_kw, frame_src=frame_src,
+                         frame_recon=frame_recon)
         return recon
 
     def package_syntax(self):
@@ -461,6 +470,7 @@ class WavefrontIntraEncoder:
             for k, v in st.items():
                 if k != "rect":
                     setattr(self, k, v)
+            self.tile_mi_off = (st["rect"][0], st["rect"][1])
             with span("entropy"):
                 payloads.append(self._syntax_pass())
             if ti == 0:
@@ -475,7 +485,8 @@ class WavefrontIntraEncoder:
                              disable_frame_end_update_cdf=no_end_update,
                              loop_filter_levels=pkg["lf_levels"],
                              tile_cols_log2=self.tile_log2[0],
-                             tile_rows_log2=self.tile_log2[1])
+                             tile_rows_log2=self.tile_log2[1],
+                             **pkg["cdef_kw"], **pkg["lr_kw"])
         from svt_av1_tpu_torch.entropy import mv as mv_syntax
         self.final_entropy = (
             FrameContext(cfg.base_q_idx) if no_end_update else tile0_fc,
@@ -503,8 +514,15 @@ class WavefrontIntraEncoder:
         self.w = make_symbol_writer(cfg.native_entropy,
                                     cfg.disable_cdf_update)
         self.ctxs = TileContexts(self.mi_cols, self.mi_rows)
+        self._cdef_written = set()
+        self.lr_ref = [lr_syntax.LrRefState() for _ in range(3)]
+        r0, c0 = self.tile_mi_off
         for sb_y in range(0, self.sb_rows_t * 16, 16):
             for sb_x in range(0, self.sb_cols_t * 16, 16):
+                # the restoration units whose syntax lands at this SB
+                lr_syntax.write_sb_units(self.w, self.fc, self.lr_rinfos,
+                                         self.lr_ref, sb_y + r0, sb_x + c0,
+                                         cfg.width, cfg.height)
                 self._emit_partition(sb_y, sb_x, 64)
         return self.w.done()
 
@@ -550,6 +568,9 @@ class WavefrontIntraEncoder:
 
         mode_syntax.write_skip(self.w, self.fc, self.ctxs, skip,
                                mi_row, mi_col)
+        postfilter.write_cdef_idx(self.w, self.cdef_idx_map,
+                                  self._cdef_written, mi_row, mi_col,
+                                  self.tile_mi_off, skip)
         mode_syntax.write_intra_luma_mode_kf(self.w, self.fc, self.ctxs,
                                              y_mode, mi_row, mi_col)
         if intra_dir.is_directional(y_mode):

@@ -554,3 +554,131 @@ def test_10bit_all_intra_on_card_equals_cpu(cuda):
     ivf, _ = _streams(frames, preset=5, intra_period=0, bit_depth=10,
                       tile_columns=2)
     assert ivf["cuda"] == ivf["cpu"]
+
+
+def _postfilter_planes(bd, seed, h=1080, w=1920):
+    """Padded recon and source planes of a 1080p frame: the source mixes
+    a smooth field with hard edges, the recon adds noise, light on the
+    left half and strong on the right (so the filters engage); SB (0, 0)
+    is flat in both (all four CDEF presets tie there)."""
+    rng = np.random.default_rng(seed)
+    peak = (1 << bd) - 1
+    dt = np.uint8 if bd <= 8 else np.uint16
+    Hp, Wp = -(-h // 64) * 64, -(-w // 64) * 64
+    recon, src = [], []
+    for p in range(3):
+        ss = 1 if p else 0
+        yy, xx = np.mgrid[0:Hp >> ss, 0:Wp >> ss]
+        clean = peak / 2 + (peak / 4) * np.sin(xx / 13.0) \
+            * np.cos(yy / 17.0) + (peak / 8) * np.sign(
+                np.sin(xx / (5.0 - 2 * ss) + yy / (9.0 - 3 * ss)))
+        clean[:64 >> ss, :64 >> ss] = peak // 3
+        s = np.clip(clean, 0, peak).astype(np.int32)
+        lvl = np.where(xx < (Wp >> ss) // 2, 1.5, 12.0) * (peak + 1) / 256
+        r = np.clip(s + rng.normal(0, 1, s.shape) * lvl, 0, peak)
+        r[:64 >> ss, :64 >> ss] = peak // 3
+        src.append(s)
+        recon.append(r.astype(dt))
+    return recon, src
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_cdef_at_1080p_on_card_equals_cpu(cuda, bd):
+    """CDEF's search + apply on 1920x1080 planes (the fp64 direction
+    projection, int64 SSEs, the 1080p SB padding: h8 = 135 of 17 SB
+    rows): tensors on the card filtered in place equal numpy planes on
+    the CPU, index map and all."""
+    from svt_av1_tpu_torch.ops import device_cdef as tdc
+    recon, src = _postfilter_planes(bd, 20 + bd)
+    mi_rows, mi_cols = 270, 480
+    skip8 = np.random.default_rng(bd).random((135, 240)) < 0.25
+    qindex = 120
+    cpu = [p.copy() for p in recon]
+    want = tdc.cdef_search_apply_dev(cpu, src, skip8, mi_rows, mi_cols,
+                                     qindex, bd, device="cpu")
+    rec = [torch.as_tensor(p, device=cuda) for p in recon]
+    got = tdc.cdef_search_apply_dev(
+        rec, [torch.as_tensor(p, device=cuda) for p in src], skip8, mi_rows,
+        mi_cols, qindex, bd, device="cuda")
+    assert np.array_equal(got[0], want[0]) and got[1:] == want[1:]
+    assert want[0][0, 0] == 0 and (want[0] > 0).any()   # tie; engages
+    for a, b in zip(rec, cpu):
+        assert np.array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_lr_at_1080p_on_card_equals_cpu(cuda, bd):
+    """Loop restoration on 1920x1080 planes: pass A's integer statistics
+    (the fp64 Gram products, where a TF32 or overflow fault would show),
+    the per-unit choices and the filtered planes on the card equal the
+    CPU's."""
+    from svt_av1_tpu_torch.ops import device_lr as tdl
+    from svt_av1_tpu_torch.ops import restoration as rst
+    from svt_av1_tpu_torch.pipeline import lr_search as tlr
+    from svt_av1_tpu_torch.pipeline.rd import rd_lambda
+    w, h, qindex = 1920, 1080, 120
+    recon, src = _postfilter_planes(bd, 30 + bd)
+    bounds = [tdl.deblock_bounds_dev(recon[p], (h + (p > 0)) >> (p > 0),
+                                     (w + (p > 0)) >> (p > 0), int(p > 0))
+              for p in range(3)]
+    rec = [torch.as_tensor(p, device=cuda) for p in recon]
+    srcs = [torch.as_tensor(p, device=cuda) for p in src]
+    for a, b in zip(tdl.lr_stats_dev(tdl.lr_planes(rec, srcs, bounds, w, h,
+                                                   bd, device="cuda")),
+                    tdl.lr_stats_dev(tdl.lr_planes(recon, src, bounds, w, h,
+                                                   bd, device="cpu"))):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+    lam = rd_lambda(qindex, bd)
+    cpu = [p.copy() for p in recon]
+    want = tlr.search_restoration_dev(cpu, src, bounds, w, h, bd, qindex,
+                                      lam, device="cpu")
+    got = tlr.search_restoration_dev(rec, srcs, bounds, w, h, bd, qindex,
+                                     lam, device="cuda")
+    for g, r in zip(got, want):
+        assert g.frame_restoration_type == r.frame_restoration_type
+        assert [vars(u) for u in g.units] == [vars(u) for u in r.units]
+    assert any(r.frame_restoration_type != rst.RESTORE_NONE for r in want)
+    for a, b in zip(rec, cpu):
+        assert np.array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.parametrize("preset", [0, 1])
+def test_postfilter_presets_all_intra_on_card_equal_cpu(cuda, preset):
+    """Presets 0 and 1 all-intra at 448x128 with 4 tile columns: CDEF
+    (and LR at preset 0) after the per-wave loop, on the card as on the
+    CPU, byte for byte."""
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=128, frames=1, seed=3)
+    ivf, waves = _streams(frames, preset=preset, intra_period=0,
+                          tile_columns=2)
+    assert waves["cuda"] and all(waves["cuda"])
+    assert ivf["cuda"] == ivf["cpu"]
+
+
+def test_postfilter_ra_on_card_equals_cpu(cuda):
+    """Random access hier-3, 9 frames at 448x128, 4 tile columns, preset
+    5 with CDEF and LR on: both filters on every frame's recon on the
+    card (the reference slots keep the filtered planes), byte for byte
+    the CPU's stream."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    from svt_av1_tpu_torch.utils.trace import TRACER
+    frames = make_clip(w=448, h=128, frames=9, seed=3)
+    ivf, counts = {}, {}
+    for d in ("cuda", "cpu"):
+        cfg = dataclasses.replace(preset_config(
+            width=448, height=128, preset=5, intra_period=-1,
+            hierarchical_levels=3, tile_columns=2, device=d),
+            enable_cdef=True, enable_restoration=True)
+        TRACER.enabled = True
+        TRACER.reset()
+        try:
+            ivf[d] = encode_ivf(frames, cfg)
+        finally:
+            TRACER.enabled = False
+        spans = TRACER.summary()
+        counts[d] = (spans["cdef"]["count"], spans["lr"]["count"])
+    assert counts == {"cuda": (9, 9), "cpu": (9, 9)}
+    assert ivf["cuda"] == ivf["cpu"]

@@ -64,14 +64,9 @@ def test_preset_config_matches_jax():
         jcfg = jax_preset_config(args)
         want = dataclasses.asdict(jcfg)
         want.pop("backend")
-        try:
-            got = dataclasses.asdict(preset_config(
-                width=1920, height=1080, preset=preset, intra_period=0,
-                device="cpu"))
-        except NotImplementedError:
-            # CDEF/LR (presets 0/1) come with later slices of the port
-            assert jcfg.enable_cdef or jcfg.enable_restoration, preset
-            continue
+        got = dataclasses.asdict(preset_config(
+            width=1920, height=1080, preset=preset, intra_period=0,
+            device="cpu"))
         got.pop("device")
         assert got == want, preset
 

@@ -109,8 +109,7 @@ def test_config_from_jax_round_trips():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enable_cdef", True),
-    ("enable_restoration", True), ("adaptive_quantization", 1),
+    ("adaptive_quantization", 1),
     ("target_bit_rate", 1000000), ("film_grain_strength", 10),
     ("enable_source_denoise", True), ("mesh_shape", (1, 2)),
     ("intra_dp_satd", True), ("rate_control_mode", 1)])
@@ -128,6 +127,34 @@ def test_directional_configs_are_accepted():
                 EncoderConfig(),
                 preset_config(width=1920, height=1080, device="cpu")):
         assert edge_filter_active(cfg)
+
+
+@pytest.mark.parametrize("preset", [0, 1])
+def test_postfilter_presets_run_all_intra(preset):
+    """Presets 0 and 1 (CDEF, and LR at preset 0) are accepted all-intra,
+    and so are both filters on any config."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    cfg = preset_config(width=1920, height=1080, preset=preset,
+                        intra_period=0, device="cpu")
+    assert cfg.enable_cdef and cfg.enable_restoration == (preset == 0)
+    cfg = EncoderConfig(**{**INTRA, "intra_period": -1, "enable_cdef": True,
+                           "enable_restoration": True})
+    assert cfg.enable_cdef and cfg.enable_restoration
+
+
+@pytest.mark.parametrize("preset", [0, 1])
+@pytest.mark.parametrize("inter", [dict(intra_period=-1),
+                                   dict(intra_period=-1,
+                                        hierarchical_levels=3)])
+def test_postfilter_presets_with_inter_frames_raise(preset, inter):
+    """With inter frames presets 0 and 1 need the interpolation-filter
+    search (and preset 0 the inter tx-type search): the non-fused inter
+    slice."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    with pytest.raises(NotImplementedError,
+                       match="non-fused inter slice"):
+        preset_config(width=1920, height=1080, preset=preset,
+                      device="cpu", **inter)
 
 
 @pytest.mark.parametrize("field,value", [("intra_period", -1),
