@@ -19,7 +19,7 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    RDOQ on/off, batch sizes and bit depths 8 and 10, and at the most rows
    a 1080p shape group can give it (B = 16320 rows of n = 256 and of
    n = 64), with times beside the bound;
-4. the first slice's main path through the user entry point: a
+4. the first slice's main path through the user entry point: a one-frame
    1920x1080 8-bit all-intra stream (preset 5, qp 40) through
    ``encode_ivf`` on ``cuda``, whose sha256 must equal the JAX package's
    stream of the same clip (``GOLDEN_*``), whose run must have launched
@@ -57,15 +57,26 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    spans, the CDEF strengths chosen and the LR frame types per plane,
    and one inter frame's CDEF + LR replayed under torch.profiler for the
    card's busy share;
-8. each mode and row length timed at the heaviest shape the four
+8. ``[search]``, the non-fused inter path: the random-access clip of 5
+   again with the interpolation-filter search and the inter tx-type
+   sweep turned on (preset 0's two inter searches on the library's
+   ``EncoderConfig``), through ``encode_ivf`` on ``cuda``, whose sha256
+   must equal the JAX package's (``GOLDEN_SEARCH_*``); spans
+   ``interp_filter_search`` and ``inter_tx_search`` must run on every
+   shape group (span ``me_rd``) of each of the 8 inter frames, the fused
+   kernel inside them and the plain trim and rate never; the total,
+   key-frame and inter times, per inter frame the stage spans, the
+   blocks per filter type and the tx-type histogram, and the largest
+   shape group's stages replayed under torch.profiler;
+9. each mode and row length timed at the heaviest shape the five
    encodes gave it; one whole fused key frame program (the all-intra
-   clip's last key frame, replayed plain for its wall and under
-   torch.profiler for its device busy time and device operations),
-   beside it one wave of the per-wave path through
-   ``decide_block_batch_dev``, and one (step, shape) group of the
-   directional key frame replayed under torch.profiler;
-9. a ``{"kernels": [...]}`` line, one entry per mode and row length
-   (``launches``: the sum over the four encodes; ``launches_by_path``:
+   clip's key frame, replayed under torch.profiler for its wall, device
+   busy time and device operations), beside it one wave of the per-wave
+   path through ``decide_block_batch_dev``, and one (step, shape) group
+   of the directional key frame replayed under torch.profiler; the
+   seconds each phase took (``[time]``);
+10. a ``{"kernels": [...]}`` line, one entry per mode and row length
+   (``launches``: the sum over the five encodes; ``launches_by_path``:
    each encode's own count, and the RA encode's inside its inter frames),
    the card's line, and last the device line.
 
@@ -88,12 +99,12 @@ import time
 from pathlib import Path
 
 # the JAX package's stream of the same input: svt_av1_tpu.pipeline.encoder.
-# encode_ivf(backend="host") on make_clip(1920, 1080, frames=2, seed=3),
+# encode_ivf(backend="host") on make_clip(1920, 1080, frames=1, seed=3),
 # preset 5, intra_period 0, qp 40
 GOLDEN_SHA256 = \
-    "ac93b471706ee25d2ea5379faa69b2d76264e7b097da42035ee614b52ecdb8dc"
-GOLDEN_BYTES = 777750
-WIDTH, HEIGHT, FRAMES, QP, PRESET = 1920, 1080, 2, 40, 5
+    "37e9a555563504073baf0c83099ece5d0eed212fdc1e69d16109c2473452c3b7"
+GOLDEN_BYTES = 389165
+WIDTH, HEIGHT, FRAMES, QP, PRESET = 1920, 1080, 1, 40, 5
 TILES = 4       # preset 5 at 1920 wide: 4 tile columns (app/cli.py)
 # the JAX package's stream of bench.py's operating point: encode_ivf(
 # backend="host") on make_clip(1920, 1080, frames=9, seed=3), preset 5,
@@ -116,6 +127,15 @@ DIR_PRESET = 2
 GOLDEN_PF_SHA256 = \
     "6d3f3695b5405f93708c34194e70ff2c5767b21e6b0ee51a3a4d7950b0e68986"
 GOLDEN_PF_BYTES = 417146
+# the JAX package's stream of the search phase: the post-filter phase's
+# clip and config with enable_interp_filter_search=True and
+# enable_tx_type_search=True (preset 0's two inter searches) in place of
+# the two filters
+GOLDEN_SEARCH_SHA256 = \
+    "8ab84ce4383687aa86325cedfe2a81350d1b88023699c09c80aa8adc28818d85"
+GOLDEN_SEARCH_BYTES = 426525
+SEARCH_SPANS = ("me_rd", "compound", "interp_filter_search",
+                "inter_tx_search")
 # synthetic large-batch checks at the most rows a 1080p shape group can
 # give the quantization stage: the [2B] single-ref pair of 8160 16x16 luma
 # blocks (n = 256) and U+V of their 8x8 chroma. The RA clip's partition DP
@@ -387,9 +407,10 @@ def _timed(torch, row, mode, c, q, lm, scan, tx, ls, int32_ops,
 def phase_kernels(torch, int32_ops: float) -> list:
     """Every (n, log_scale, B) of the check grid, each kernel mode (the
     fused ones with plane type 0 and 1) against its plain version, exact,
-    at bit depths 8 and 10; each mode timed at B=8 (a typical wave) and
-    B=8160 (a 1080p frame's 16x16 blocks) at 8 bits, at B=8160 and
-    log_scale 0 at 10 bits, and at the inter path's B=16320 batches."""
+    at bit depths 8 and 10; each mode timed at log_scale 0 (the others
+    change no work the kernel does) at B=8 (a typical wave) and B=8160
+    (a 1080p frame's 16x16 blocks) at 8 bits, at B=8160 at 10 bits, and
+    at the inter path's B=16320 batches."""
     rows = []
     for bd in (8, 10):
         for n in _row_lengths():
@@ -404,8 +425,8 @@ def phase_kernels(torch, int32_ops: float) -> list:
                             if not row["exact"]:
                                 raise SystemExit(f"{mode} kernel != plain "
                                                  f"at {row}")
-                            if pt == 0 and ((bd == 8 and b in (8, 8160)) or
-                                            (b == 8160 and ls == 0)):
+                            if pt == 0 and ls == 0 and (
+                                    b == 8160 or (bd == 8 and b == 8)):
                                 _timed(torch, row, mode, *ins, ls,
                                        int32_ops, bd=bd)
                             rows.append(row)
@@ -722,6 +743,21 @@ INTER_SPANS = ("inter_partition_dp", "inter_blocks", "intra_flip",
                "flip_decision", "flip_apply", "tmvp_build", "dlf", "entropy")
 
 
+def _group_spy(biggest):
+    """A wrapper factory for ``shape_group_issue`` that keeps the arguments
+    of the largest shape group in ``biggest`` for the profiled replay.
+    Only references: the group writes the recon planes and reads nothing
+    of them, so the replay clones whatever they hold then, and the timed
+    encode copies nothing."""
+    def spy(fn):
+        def call(recon, *a, **k):
+            if len(a[6]) > biggest.get("b", 0):
+                biggest.update(b=len(a[6]), recon=recon, args=a, kw=k)
+            return fn(recon, *a, **k)
+        return call
+    return spy
+
+
 def phase_inter(torch, check_keyframes: bool = True):
     """The random-access operating point. Returns (result, {(mode, B, n,
     log_scale): launches} over the whole encode, the same inside the inter
@@ -757,21 +793,10 @@ def phase_inter(torch, check_keyframes: bool = True):
             return out
         return call
 
-    def group_spy(fn):
-        """Keep the arguments of the largest shape group for the
-        profiled replay. Only references: the group writes the recon
-        planes and reads nothing of them, so the replay clones whatever
-        they hold then, and the timed encode copies nothing."""
-        def call(recon, *a, **k):
-            if len(a[6]) > biggest.get("b", 0):
-                biggest.update(b=len(a[6]), recon=recon, args=a, kw=k)
-            return fn(recon, *a, **k)
-        return call
-
     ivf, dt, launches, shapes, plain_calls, tracer, keys = _encode_counted(
         torch, frames, cfg,
         spies=((InterFrameEncoder, "encode_compute", compute_spy),
-               (di, "shape_group_issue", group_spy)))
+               (di, "shape_group_issue", _group_spy(biggest))))
     sha = hashlib.sha256(ivf).hexdigest()
     spans = tracer.summary()
     key_s = sum(s["dur"] for s in tracer.spans if s["stage"] == "keyframe")
@@ -924,6 +949,111 @@ def phase_postfilter(torch):
         shapes, replay
 
 
+def phase_search(torch):
+    """The random-access clip with the interpolation-filter search and the
+    inter tx-type sweep on: the non-fused inter path on every inter frame.
+    Returns (result, {(mode, B, n, log_scale): launches}, the largest shape
+    group's encoder and batch for the profiled replay)."""
+    import dataclasses
+
+    import numpy as np
+
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.ops import device_inter as di
+    from svt_av1_tpu_torch.pipeline.inter import InterFrameEncoder
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    from svt_av1_tpu_torch.utils.trace import TRACER
+    frames = make_clip(w=WIDTH, h=HEIGHT, frames=RA_FRAMES, seed=3)
+    cfg = dataclasses.replace(preset_config(
+        width=WIDTH, height=HEIGHT, qp=QP, preset=PRESET, intra_period=-1,
+        hierarchical_levels=RA_LEVELS, device="cuda"),
+        enable_interp_filter_search=True, enable_tx_type_search=True)
+    per_frame, biggest = [], {}
+
+    def compute_spy(fn):
+        """Per inter frame: its stage spans, the kernel's launches inside
+        it, the inter blocks per filter type and per luma tx type."""
+        def call(self, *a, **k):
+            first = len(TRACER.spans)
+            before = collections.Counter(dev.LAUNCHES)
+            out = fn(self, *a, **k)
+            spans = collections.defaultdict(float)
+            counts = collections.Counter()
+            for sp in TRACER.spans[first:]:
+                spans[sp["stage"]] += sp["dur"]
+                counts[sp["stage"]] += 1
+            inter = self.block_is_inter
+            per_frame.append({
+                "spans_s": {st: spans[st] for st in SEARCH_SPANS},
+                "span_counts": {st: counts[st] for st in SEARCH_SPANS},
+                "launches": dict(collections.Counter(dev.LAUNCHES) - before),
+                "blocks_per_filter": np.bincount(
+                    self.interp_f[inter], minlength=3).tolist(),
+                "tx_type_histogram": np.bincount(
+                    self.y_tx_type[inter], minlength=16).tolist(),
+                "intra_flips": int((~inter).sum())})
+            return out
+        return call
+
+    ivf, dt, launches, shapes, plain_calls, tracer, keys = _encode_counted(
+        torch, frames, cfg,
+        spies=((InterFrameEncoder, "encode_compute", compute_spy),
+               (di, "shape_group_issue", _group_spy(biggest))))
+    sha = hashlib.sha256(ivf).hexdigest()
+    spans = tracer.summary()
+    key_s = sum(s["dur"] for s in tracer.spans if s["stage"] == "keyframe")
+    n_inter = RA_FRAMES - 1
+    print(f"[search] {WIDTH}x{HEIGHT} random access hier-{RA_LEVELS} preset "
+          f"{PRESET} qp {QP} with the interpolation-filter search and the "
+          f"inter tx-type sweep: {RA_FRAMES} frames in {dt:.2f} s "
+          f"({dt / RA_FRAMES:.2f} s/frame), {len(ivf)} bytes, sha256 {sha}",
+          flush=True)
+    print(f"[search] key frame {key_s:.2f} s (its compute); inter frames "
+          f"{(dt - key_s) / n_inter:.3f} s/frame (wall after the key "
+          f"frame's compute, entropy drained, / {n_inter})", flush=True)
+    for i, rec in enumerate(per_frame):
+        st = ", ".join(f"{k} {v:.4f} s" for k, v in rec["spans_s"].items())
+        print(f"[search] inter frame {i} (coding order): {st}; blocks per "
+              f"filter (REGULAR, SMOOTH, SHARP) {rec['blocks_per_filter']}; "
+              f"tx types {rec['tx_type_histogram']}; flips "
+              f"{rec['intra_flips']}; launches {rec['launches']}",
+              flush=True)
+    for stage in INTER_SPANS + SEARCH_SPANS:
+        v = spans.get(stage, {"count": 0, "total_s": 0.0})
+        print(f"[search] span {stage}: {v['count']} x, {v['total_s']} s",
+              flush=True)
+    _check_stream("search", ivf, sha, GOLDEN_SEARCH_BYTES,
+                  GOLDEN_SEARCH_SHA256)
+    if len(per_frame) != n_inter:
+        raise SystemExit(f"{len(per_frame)} inter frames, want {n_inter}")
+    for i, rec in enumerate(per_frame):
+        groups = rec["span_counts"]["me_rd"]
+        for stage in ("interp_filter_search", "inter_tx_search"):
+            if not groups or rec["span_counts"][stage] != groups:
+                raise SystemExit(f"span {stage} ran "
+                                 f"{rec['span_counts'][stage]} times in "
+                                 f"inter frame {i}, on {groups} shape "
+                                 f"groups")
+        if rec["launches"].get("quant_stage_rdoq", 0) <= 0:
+            raise SystemExit(f"inter frame {i} never launched the fused "
+                             f"kernel")
+    if plain_calls:
+        raise SystemExit(f"the plain trim or rate ran on the main path: "
+                         f"{plain_calls}")
+    print("[search] stream equals the JAX golden; interp_filter_search and "
+          "inter_tx_search on every shape group of every inter frame; "
+          "plain rdoq_trim_j / _rate_cdf_j calls 0", flush=True)
+    key = _keyframe_report("search", keys, tracer, TILES)
+    return {"seconds": dt, "seconds_per_frame": dt / RA_FRAMES,
+            "keyframe_compute_s": key_s, "keyframes": key,
+            "inter_s_per_frame": (dt - key_s) / n_inter,
+            "inter_frames": per_frame, "bytes": len(ivf), "sha256": sha,
+            "launches": launches, "launch_shapes": _shape_keys(shapes),
+            "plain_trim_rate_calls": plain_calls, "spans": spans}, \
+        shapes, biggest
+
+
 def phase_postfilter_profile(torch, replay) -> dict:
     """One inter frame's post-filters replayed from clones of its
     deblocked planes: CDEF + LR together (``postfilter.run_postfilters``),
@@ -987,9 +1117,11 @@ def phase_postfilter_profile(torch, replay) -> dict:
     return res
 
 
-def phase_group_profile(torch, biggest) -> dict:
-    """The main path's largest shape group replayed once under
-    torch.profiler: device operations, device busy ms, wall ms."""
+def phase_group_profile(torch, biggest, tag: str = "inter-profile") -> dict:
+    """An encode's largest shape group (``_group_spy``) replayed once under
+    torch.profiler, on clones of its frame's recon planes, with the
+    searches its config ran: device operations, device busy ms, wall
+    ms."""
     from torch.profiler import ProfilerActivity, profile
 
     from svt_av1_tpu_torch.ops import device_inter as di
@@ -1015,7 +1147,7 @@ def phase_group_profile(torch, biggest) -> dict:
            "device_busy_share": busy_us / wall_us if busy_us else None}
     share = "not measured" if res["device_busy_share"] is None \
         else f"{100 * res['device_busy_share']:.2f}%"
-    print(f"[inter-profile] shape group {size}, B={res['B']}: wall "
+    print(f"[{tag}] shape group {size}, B={res['B']}: wall "
           f"{res['wall_ms']:.2f} ms, device busy {res['device_busy_ms']:.3f}"
           f" ms ({share}), {res['device_ops']} device ops", flush=True)
     return res
@@ -1068,11 +1200,12 @@ def phase_directional_profile(torch, groups) -> dict:
 
 def phase_keyframe_profile(torch, replay) -> dict:
     """One whole fused key frame program (the all-intra clip's last key
-    frame, ``run_tiles_fused`` on its tile states) replayed twice: once
-    plain for its wall time, once under torch.profiler (device activity
-    only) for its device operations and device busy ms (the sum of device
-    event times). The profiler's raw events are read directly: building
-    its event tree over a million operations takes minutes."""
+    frame, ``run_tiles_fused`` on its tile states) replayed once under
+    torch.profiler (device activity only): its wall time, device
+    operations and device busy ms (the sum of device event times). The
+    encode's own ``intra_tiles_fused`` span is its plain wall. The
+    profiler's raw events are read directly: building its event tree over
+    a million operations takes minutes."""
     from torch.profiler import ProfilerActivity, profile
 
     from svt_av1_tpu_torch.ops import device_tile as tdt
@@ -1085,7 +1218,6 @@ def phase_keyframe_profile(torch, replay) -> dict:
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0)
 
-    wall_ms = run()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         prof_wall_ms = run()
     t1 = time.perf_counter()
@@ -1094,21 +1226,18 @@ def phase_keyframe_profile(torch, replay) -> dict:
               if e.device_type() == cuda]
     busy_ms = sum(dev_ns) / 1e6
     stats = dict(enc.fused_stats)
-    res = {"wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
-           "device_busy_ms": busy_ms,
-           "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+    res = {"profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
            "device_busy_share_profiled":
                busy_ms / prof_wall_ms if busy_ms else None,
            "device_ops": len(dev_ns), "program": stats,
            "profiler_post_s": time.perf_counter() - t1}
-    share = "not measured" if res["device_busy_share"] is None else (
-        f"{100 * res['device_busy_share']:.2f}% of the plain wall, "
-        f"{100 * res['device_busy_share_profiled']:.2f}% of the profiled")
+    share = "not measured" if busy_ms == 0 else \
+        f"{100 * res['device_busy_share_profiled']:.2f}% of the wall"
     print(f"[profile] one fused key frame program ({stats['tiles']} tiles, "
           f"{stats['wave_steps']} wave steps, {stats['class_steps']} class "
-          f"steps, {stats['lanes']} lanes): wall {wall_ms:.2f} ms plain, "
-          f"{prof_wall_ms:.2f} ms profiled; device busy {busy_ms:.3f} ms "
-          f"({share}), {len(dev_ns)} device ops", flush=True)
+          f"steps, {stats['lanes']} lanes): wall {prof_wall_ms:.2f} ms "
+          f"profiled; device busy {busy_ms:.3f} ms ({share}), "
+          f"{len(dev_ns)} device ops", flush=True)
     return res
 
 
@@ -1234,41 +1363,66 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 2
-    env = phase_environment(torch)
-    build = phase_build()
-    grid = phase_kernels(torch, env["int32_ops_per_s"])
-    slice_res, shapes = phase_slice(torch)
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    env = timed("env", phase_environment, torch)
+    build = timed("build", phase_build)
+    grid = timed("kernel", phase_kernels, torch, env["int32_ops_per_s"])
+    slice_res, shapes = timed("slice", phase_slice, torch)
     replay = slice_res.pop("replay")
     inter_res, inter_shapes, inter_frame_shapes, biggest = \
-        phase_inter(torch)
-    dir_res, dir_shapes = phase_directional(torch)
+        timed("inter", phase_inter, torch)
+    dir_res, dir_shapes = timed("directional", phase_directional, torch)
     dir_groups = dir_res.pop("groups")
-    pf_res, pf_shapes, pf_replay = phase_postfilter(torch)
+    pf_res, pf_shapes, pf_replay = timed("postfilter", phase_postfilter,
+                                         torch)
+    search_res, search_shapes, search_group = timed("search", phase_search,
+                                                    torch)
     by_path = {"all_intra": _by_mode_n(shapes),
                "random_access": _by_mode_n(inter_shapes),
                "ra_inter_frames": _by_mode_n(inter_frame_shapes),
                "directional": _by_mode_n(dir_shapes),
-               "postfilter": _by_mode_n(pf_shapes)}
+               "postfilter": _by_mode_n(pf_shapes),
+               "search": _by_mode_n(search_shapes)}
     shapes = collections.Counter(shapes)
     shapes.update(inter_shapes)
     shapes.update(dir_shapes)
     shapes.update(pf_shapes)
-    kernels = kernel_entries(torch, by_path, shapes, env["int32_ops_per_s"])
-    group_prof = phase_group_profile(torch, biggest)
-    key_prof = phase_keyframe_profile(torch, replay)
-    prof = phase_profile(torch, np)
-    dir_prof = phase_directional_profile(torch, dir_groups)
-    pf_prof = phase_postfilter_profile(torch, pf_replay)
+    shapes.update(search_shapes)
+    kernels = timed("kernels", kernel_entries, torch, by_path, shapes,
+                    env["int32_ops_per_s"])
+    group_prof = timed("inter-profile", phase_group_profile, torch, biggest)
+    key_prof = timed("profile", phase_keyframe_profile, torch, replay)
+    prof = timed("wave-profile", phase_profile, torch, np)
+    dir_prof = timed("directional-profile", phase_directional_profile,
+                     torch, dir_groups)
+    pf_prof = timed("postfilter-profile", phase_postfilter_profile, torch,
+                    pf_replay)
+    search_prof = timed("search-profile", phase_group_profile, torch,
+                        search_group, "search-profile")
+    phase_s["total"] = time.perf_counter() - t_start
+    print("[time] " + ", ".join(f"{k} {v:.2f} s" for k, v in phase_s.items())
+          + " (after the imports)", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"env": env, "build": build, "kernel_grid": grid,
                    "slice": slice_res, "inter": inter_res,
                    "directional": dir_res, "postfilter": pf_res,
+                   "search": search_res,
                    "kernels": kernels, "shape_group_profile": group_prof,
                    "keyframe_program_profile": key_prof,
                    "wave_profile": prof,
                    "directional_group_profile": dir_prof,
-                   "postfilter_profile": pf_prof}, f, indent=1)
+                   "postfilter_profile": pf_prof,
+                   "search_profile": search_prof,
+                   "phase_seconds": phase_s}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,10 @@
 
 The preset ladder is the JAX package's ``app/cli.py:preset_config``,
 unchanged, with the torch ``device`` in the place of its ``backend``.
-Every preset encodes all-intra (``intra_period=0``), presets 0 and 1 with
-CDEF (and preset 0 with loop restoration) on the device. With inter
-frames, presets 0 and 1 raise NotImplementedError: their interpolation-
-filter search (and preset 0's inter tx-type search) come with the
-non-fused inter slice.
+Every preset encodes all-intra and with inter frames on the device;
+presets 0 and 1 with CDEF (and preset 0 with loop restoration) and, in
+inter frames, the interpolation-filter search (and preset 0's inter
+tx-type search) on the non-fused inter path.
 """
 
 from __future__ import annotations

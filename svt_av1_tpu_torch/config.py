@@ -9,9 +9,10 @@ takes the place of ``backend``. Entry points run on that device; a
 back to the CPU.
 
 The port covers all-intra streams (with the normative intra edge filter
-of the directional presets) and the fused inter path (low-delay P and
-hierarchical-B random access, with compound prediction, TMVP and the
-intra-flip pass). ``__post_init__`` raises ``NotImplementedError`` for
+of the directional presets), low-delay P and hierarchical-B random access
+(compound prediction, TMVP, the intra-flip pass, and the inter
+interpolation-filter and tx-type searches) and the in-loop post-filters.
+``__post_init__`` raises ``NotImplementedError`` for
 every tool that a later slice brings.
 """
 
@@ -218,13 +219,7 @@ class EncoderConfig:
 
 def _reject_later_slices(cfg: EncoderConfig) -> None:
     """Raise NotImplementedError for a tool the port does not run yet."""
-    inter = cfg.intra_period != 0 or cfg.hierarchical_levels > 0
     later = [
-        (inter and cfg.enable_tx_type_search,
-         "the tx-type search of inter frames", "the non-fused inter slice"),
-        (inter and cfg.enable_interp_filter_search,
-         "the interpolation-filter search of inter frames",
-         "the non-fused inter slice"),
         (cfg.adaptive_quantization != 0, "adaptive quantization",
          "the AQ slice"),
         (cfg.rate_control_mode != RateControlMode.CQP

@@ -510,10 +510,22 @@ def take2(plane, iy, ix):
 # the padded reference; filter rows are gathered by sub-pel phase.)
 
 @functools.lru_cache(maxsize=64)
-def mc_filters(dim: int, device: torch.device, dtype=torch.int32):
-    """The [16, 8] phase table of one block dimension (regular filter)."""
+def mc_filter_bank(dim: int, device: torch.device, dtype=torch.int32):
+    """The [3, 16, 8] switchable banks (REGULAR, SMOOTH, SHARP) of one
+    block dimension: the 4-tap sets at 4 px and below (mc._filters)."""
     from svt_av1_tpu_torch.ops import mc as mch
-    return const(mch._filters(dim), device, dtype)
+    return const(mch._filters(dim, np.arange(mch.SWITCHABLE_FILTERS)),
+                 device, dtype)
+
+
+def mc_filter_rows(dim: int, frac, ftype=0, dtype=torch.int32):
+    """Per-block taps [B, 8] of one direction, gathered by sub-pel phase
+    ``frac`` [B] and filter type: ``ftype`` an int (0 = REGULAR) or a [B]
+    tensor (per-lane switchable filter)."""
+    bank = mc_filter_bank(dim, frac.device, dtype)
+    if isinstance(ftype, int):
+        return bank[ftype][frac]
+    return bank[ftype.long(), frac]
 
 
 def mc_window(ref_padded, xs, ys, mvs, w: int, h: int, ss: int,
@@ -550,19 +562,21 @@ def mc_window(ref_padded, xs, ys, mvs, w: int, h: int, ss: int,
 
 
 def mc_block_batch_j(ref_padded, xs, ys, mvs, w: int, h: int,
-                     ss: int = 0, bd: int = 8, ref_idx=None):
+                     ss: int = 0, bd: int = 8, ref_idx=None, ftype=0):
     """Twin of the JAX ``mc_block_batch_j`` (mc.mc_block_batch): [B]
     blocks, [B, 2] MVs in 1/8-pel luma units. Returns [B, h, w] pixels
     (int32). ``ref_idx``: optional [B] plane selector when ``ref_padded``
     is a stacked [R, H, W] bank (per-block reference choice in one
-    gather). int32 arithmetic, as the JAX twin's."""
+    gather). ``ftype``: interpolation filter, an int (0 = REGULAR) or a
+    [B] tensor (mc.mc_block_batch's ``ftype``). int32 arithmetic, as the
+    JAX twin's."""
     from svt_av1_tpu_torch.ops import mc as mch
     b = xs.shape[0]
     win, frac_r, frac_c = mc_window(ref_padded, xs, ys, mvs, w, h, ss,
                                     ref_idx)
     win = win.to(torch.int32)
-    fx = mc_filters(w, win.device)[frac_c]                 # [B, 8]
-    fy = mc_filters(h, win.device)[frac_r]
+    fx = mc_filter_rows(w, frac_c, ftype)                  # [B, 8]
+    fy = mc_filter_rows(h, frac_r, ftype)
     offset_bits = bd + 2 * mch.FILTER_BITS - mch.ROUND0
     final_bits = 2 * mch.FILTER_BITS - mch.ROUND0 - mch.ROUND1
     sub = (1 << (offset_bits - mch.ROUND1)) \

@@ -6,8 +6,9 @@ the decimated pyramid (same row-major offset order, same first-minimum
 tie-breaks as ``ops.me.fullpel_search``), quarter-pel refinement, 8-tap
 MC, the transform/quant full loop with integer CDF rates (the quantization
 stage is one launch of the hand-written kernel on CUDA), the {best-MV,
-zero-MV} fold, the compound average candidate, both chroma planes and the
-recon scatter — the fused shape-group program. Beside it: the reference
+zero-MV} fold, the compound average candidate, the interpolation-filter
+search and the inter tx-type sweep where enabled, both chroma planes and
+the recon scatter — the shape-group program. Beside it: the reference
 prep (edge padding + the HME pyramid) of a slot's planes, the inter
 partition DP's ME work, and the intra-flip decision pass.
 
@@ -39,6 +40,7 @@ from svt_av1_tpu_torch.ops.device import const, take2
 from svt_av1_tpu_torch.ops.device_md import (_full_loop_j, _rdcost_j,
                                              predict_any_j, quant_vectors)
 from svt_av1_tpu_torch.pipeline import common, md
+from svt_av1_tpu_torch.utils.trace import span
 
 I64MAX = np.iinfo(np.int64).max
 
@@ -146,8 +148,8 @@ def _mc_from_window(win, off_r, off_c, frac_r, frac_c, w: int, h: int,
     separable filter of mc_block_batch_j (int32)."""
     b = win.shape[0]
     device = win.device
-    fx = dev.mc_filters(w, device)[frac_c]
-    fy = dev.mc_filters(h, device)[frac_r]
+    fx = dev.mc_filter_rows(w, frac_c)
+    fy = dev.mc_filter_rows(h, frac_r)
     idx_c = off_c[:, None] + _ar(w + 7, device)
     sub = win.gather(2, idx_c[:, None, :].expand(b, win.shape[1], w + 7))
     idx_r = off_r[:, None] + _ar(h + 7, device)
@@ -233,16 +235,17 @@ def _clamp_mvs_j(mvs, xs, ys, bw, bh, plane_w, plane_h, ss=0):
 
 # --- compound prediction ---------------------------------------------------------
 def mc_block_batch_conv_j(ref_padded, xs, ys, mvs, w, h, ss=0, bd=8,
-                          ref_idx=None):
+                          ref_idx=None, ftype=0):
     """Twin of mc.mc_block_batch_conv (CONV-domain compound side, int64).
     ``ref_idx``: optional [B] plane selector when ``ref_padded`` is a
-    stacked [R, H, W] bank."""
+    stacked [R, H, W] bank; ``ftype``: an int (0 = REGULAR) or a [B]
+    tensor of interpolation filters."""
     b = xs.shape[0]
     win, frac_r, frac_c = dev.mc_window(ref_padded, xs, ys, mvs, w, h, ss,
                                         ref_idx, flat=False)
     win = win.long()
-    fx = dev.mc_filters(w, win.device, torch.int64)[frac_c]
-    fy = dev.mc_filters(h, win.device, torch.int64)[frac_r]
+    fx = dev.mc_filter_rows(w, frac_c, ftype, torch.int64)
+    fy = dev.mc_filter_rows(h, frac_r, ftype, torch.int64)
     offset_bits = bd + 2 * mc.FILTER_BITS - mc.ROUND0
     horiz = torch.full((b, h + 7, w), 1 << (bd + mc.FILTER_BITS - 1),
                        dtype=torch.int64, device=win.device)
@@ -267,39 +270,40 @@ def compound_average_j(res0, res1, bd=8):
     return tmp.clamp(0, (1 << bd) - 1)
 
 
-# --- the fused shape group ---------------------------------------------------------
-# multi-ref ME + the single-ref pair + the compound fold + both chroma
-# planes + the recon scatter, for every block of one shape: decisions are
-# those of the host _me_rd_pruned -> _compound_pairs -> chroma chain (same
-# argmin tie-breaks, same integer RD, same fold order).
+# --- the shape group, stage by stage ---------------------------------------------
+# multi-ref ME + the single-ref pair (me_rd_j), the compound fold
+# (compound_j), the interpolation-filter search (interp_filter_select_j)
+# and the inter tx-type sweep (inter_tx_search_j) where the config enables
+# them, both chroma planes (chroma_j) and the recon scatter, for every
+# block of one shape (shape_group): decisions are those of the host
+# _me_rd_pruned -> _compound_pairs -> searches -> chroma chain (same argmin
+# tie-breaks, same integer RD, same fold order). A group's state is a dict
+# of tensors: the luma bank and the sources (bank, srcs), the winner's
+# cost, mv, mv1, pos (its bank position; the forward one for compound),
+# comp, qc, eo, rec and pred (its luma prediction), fsel/bsel; where
+# compound is searched the direction winners' bank positions and MVs
+# (fref, bref, mv0a, mv1a); after the searches the per-lane filter (ftype)
+# and luma tx type (tts).
 
-def shape_group(recon, pyrs, ubank, vbank, src_pyr, src_u, src_v, xs, ys,
-                size, qv, lamqv, fwd_pos: tuple, bwd_pos: tuple, bd: int,
-                rdoq: bool = False):
-    """One shape group on tensors of one device. recon: [y, u, v] frame
-    planes, written in place at the group's blocks; pyrs: R luma
-    pyramids (full, 1/2, 1/4), padded; ubank/vbank: [R, Hc, Wc] padded
-    chroma banks; xs/ys [B] int64; qv [B] int32, lamqv [B] int64;
-    fwd_pos/bwd_pos: positions of the forward/backward references in the
-    bank (empty bwd_pos = no compound search). Returns the 13 decision
-    and coefficient outputs of the JAX program, with its dtypes: (cost
-    int64, mv int16, mv1 int16, ref position int8, compound bool, fsel
-    int8, bsel int8, qc_y int16, eob_y int16, qc_u, eob_u, qc_v, eob_v
-    int16)."""
+def me_rd_j(pyrs, src_pyr, xs, ys, size, qv, lamqv, fwd_pos: tuple,
+            bwd_pos: tuple, bd: int, rdoq: bool = False):
+    """Multi-ref full-pel ME, sub-pel refinement of the per-direction (or
+    overall) winners and the single-ref RD pair {refined MV, zero MV} on
+    the overall winner (twin of _me_rd_pruned). pyrs: R luma pyramids
+    (full, 1/2, 1/4), padded; xs/ys [B] int64; qv [B] int32, lamqv [B]
+    int64; fwd_pos/bwd_pos: positions of the forward/backward references
+    in the bank (empty bwd_pos = no compound search). Returns the group
+    state."""
     bw, bh = common.leaf_wh(size)
-    cw, ch = bw >> 1, bh >> 1
     tx_size = common.tx_size_for_rect(bw, bh, 0)
-    tx_uv = common.tx_size_for_rect(cw, ch, 1)
     ref_sel = bool(fwd_pos) and bool(bwd_pos)
     n_refs = len(pyrs)
-    pix = recon[0].dtype
     device = xs.device
     rlq = lamqv if rdoq else None
     b = xs.shape[0]
     src_full = src_pyr[0]
     h, w = src_full.shape
 
-    # --- multi-ref ME ---
     fulls, sads = [], []
     for pyr in pyrs:
         mv, sad = fullpel_search_j(pyr, src_pyr, xs, ys, size)
@@ -317,6 +321,7 @@ def shape_group(recon, pyrs, ubank, vbank, src_pyr, src_u, src_v, xs, ys,
                               fulls_a[pos, ar], bd=bd, ref_idx=pos)
         return _clamp_mvs_j(mv8, xs, ys, bw, bh, w, h)
 
+    g = {"bank": refs_bank}
     if ref_sel:
         # per-direction winners first: the overall winner is always one
         # of them, so the single-ref candidate needs no third refinement
@@ -324,14 +329,13 @@ def shape_group(recon, pyrs, ubank, vbank, src_pyr, src_u, src_v, xs, ys,
         bidx = const(np.asarray(bwd_pos, np.int64), device)
         fsel = torch.argmin(sads[fidx], dim=0)
         bsel = torch.argmin(sads[bidx], dim=0)
-        fref = fidx[fsel]                                    # bank positions
-        bref = bidx[bsel]
-        mv0a = refine_for(fref)
-        mv1a = refine_for(bref)
+        g.update(fref=fidx[fsel], bref=bidx[bsel])           # bank positions
+        g["mv0a"] = refine_for(g["fref"])
+        g["mv1a"] = refine_for(g["bref"])
         fwd_mask = np.zeros(n_refs, dtype=bool)
         fwd_mask[list(fwd_pos)] = True
         is_f = const(fwd_mask, device)[best_all]
-        mv_win = torch.where(is_f[:, None], mv0a, mv1a)
+        mv_win = torch.where(is_f[:, None], g["mv0a"], g["mv1a"])
     else:
         fsel = torch.zeros(b, dtype=torch.int64, device=device)
         bsel = torch.zeros(b, dtype=torch.int64, device=device)
@@ -355,91 +359,304 @@ def shape_group(recon, pyrs, ubank, vbank, src_pyr, src_u, src_v, xs, ys,
     mv_bits2 = (2 << md.RATE_Q) + 256 * (cand2.abs().sum(dim=1) > 0)
     cost2 = _rdcost_j(dist2, torch.cat([lamqv, lamqv]), rate2 + mv_bits2)
     bt = cost2[b:] < cost2[:b]                # zero strictly beats refined
-    cost_s = torch.where(bt, cost2[b:], cost2[:b])
-    mv_s = torch.where(bt[:, None], cand2[b:], cand2[:b])
-    qc_s = torch.where(bt[:, None, None], qc2[b:], qc2[:b])
-    eo_s = torch.where(bt, eo2[b:], eo2[:b])
-    rec_s = torch.where(bt[:, None, None], rec2[b:], rec2[:b])
+    bt3 = bt[:, None, None]
+    g.update(srcs=srcs, pos=best_all, fsel=fsel, bsel=bsel,
+             cost=torch.where(bt, cost2[b:], cost2[:b]),
+             mv=torch.where(bt[:, None], cand2[b:], cand2[:b]),
+             qc=torch.where(bt3, qc2[b:], qc2[:b]),
+             eo=torch.where(bt, eo2[b:], eo2[:b]),
+             rec=torch.where(bt3, rec2[b:], rec2[:b]),
+             pred=torch.where(bt3, pred2[b:], pred2[:b]),
+             comp=torch.zeros(b, dtype=torch.bool, device=device),
+             mv1=torch.zeros((b, 2), dtype=torch.int64, device=device))
+    return g
 
-    # --- compound fold ---
-    comp = torch.zeros(b, dtype=torch.bool, device=device)
-    mv1 = torch.zeros_like(mv_s)
-    pos_chosen = best_all
-    if ref_sel:
-        c0 = mc_block_batch_conv_j(refs_bank, xs, ys, mv0a, bw, bh, ss=0,
-                                   bd=bd, ref_idx=fref)
-        c1 = mc_block_batch_conv_j(refs_bank, xs, ys, mv1a, bw, bh, ss=0,
-                                   bd=bd, ref_idx=bref)
-        pred_c = compound_average_j(c0, c1, bd)
-        qc_c, eo_c, rec_c, dist_c, rate_c = _full_loop_j(
-            srcs, pred_c, torch.zeros(b, dtype=torch.int32, device=device),
-            (0,), tx_size, size, qv, bd, 0, rdoq_lam_qv=rlq)
-        mv_bits_c = (3 << md.RATE_Q) \
-            + 256 * ((mv0a.abs().sum(dim=1) > 0).long()
-                     + (mv1a.abs().sum(dim=1) > 0))
-        cost_c = _rdcost_j(dist_c, lamqv, rate_c + mv_bits_c)
-        comp = cost_c < cost_s
-        cost_s = torch.where(comp, cost_c, cost_s)
-        mv_s = torch.where(comp[:, None], mv0a, mv_s)
-        qc_s = torch.where(comp[:, None, None], qc_c, qc_s)
-        eo_s = torch.where(comp, eo_c, eo_s)
-        rec_s = torch.where(comp[:, None, None], rec_c, rec_s)
-        mv1 = torch.where(comp[:, None], mv1a, mv1)
-        pos_chosen = torch.where(comp, fref, best_all)
 
-    # --- chroma: both planes as one [2B] batch over the stacked U+V bank
-    # (V lanes offset their ref index by n_refs)
+def compound_j(g, xs, ys, size, qv, lamqv, bd: int, rdoq: bool = False):
+    """The compound candidate (the per-direction winners' average) and
+    its strict-< fold over the single-ref winner (twin of
+    _compound_pairs and its fold in _encode_blocks). Updates ``g``."""
+    if "fref" not in g:
+        return
+    bw, bh = common.leaf_wh(size)
+    tx_size = common.tx_size_for_rect(bw, bh, 0)
+    b = xs.shape[0]
+    bank = g["bank"]
+    c0 = mc_block_batch_conv_j(bank, xs, ys, g["mv0a"], bw, bh, ss=0,
+                               bd=bd, ref_idx=g["fref"])
+    c1 = mc_block_batch_conv_j(bank, xs, ys, g["mv1a"], bw, bh, ss=0,
+                               bd=bd, ref_idx=g["bref"])
+    pred_c = compound_average_j(c0, c1, bd)
+    qc_c, eo_c, rec_c, dist_c, rate_c = _full_loop_j(
+        g["srcs"], pred_c,
+        torch.zeros(b, dtype=torch.int32, device=xs.device), (0,),
+        tx_size, size, qv, bd, 0, rdoq_lam_qv=lamqv if rdoq else None)
+    mv_bits_c = (3 << md.RATE_Q) \
+        + 256 * ((g["mv0a"].abs().sum(dim=1) > 0).long()
+                 + (g["mv1a"].abs().sum(dim=1) > 0))
+    cost_c = _rdcost_j(dist_c, lamqv, rate_c + mv_bits_c)
+    comp = cost_c < g["cost"]
+    c3 = comp[:, None, None]
+    g.update(comp=comp, cost=torch.where(comp, cost_c, g["cost"]),
+             mv=torch.where(comp[:, None], g["mv0a"], g["mv"]),
+             mv1=torch.where(comp[:, None], g["mv1a"], g["mv1"]),
+             qc=torch.where(c3, qc_c, g["qc"]),
+             eo=torch.where(comp, eo_c, g["eo"]),
+             rec=torch.where(c3, rec_c, g["rec"]),
+             pred=torch.where(c3, pred_c, g["pred"]),
+             pos=torch.where(comp, g["fref"], g["pos"]))
+
+
+def _winner_pred_j(g, xs, ys, size, bd: int, ftype):
+    """The winner's luma prediction with interpolation filter ``ftype``
+    (an int or a [B] tensor): single-ref MC, or the compound average of
+    two CONV-domain sides, each with the block's filter (twin of
+    _winner_preds)."""
+    bw, bh = common.leaf_wh(size)
+    bank = g["bank"]
+    pred = dev.mc_block_batch_j(bank, xs, ys, g["mv"], bw, bh, ss=0, bd=bd,
+                                ref_idx=g["pos"], ftype=ftype).long()
+    if "fref" not in g:
+        return pred
+    c0 = mc_block_batch_conv_j(bank, xs, ys, g["mv"], bw, bh, ss=0, bd=bd,
+                               ref_idx=g["fref"], ftype=ftype)
+    c1 = mc_block_batch_conv_j(bank, xs, ys, g["mv1"], bw, bh, ss=0, bd=bd,
+                               ref_idx=g["bref"], ftype=ftype)
+    return torch.where(g["comp"][:, None, None],
+                       compound_average_j(c0, c1, bd), pred)
+
+
+def interp_filter_select_j(g, xs, ys, size, qv, lamqv, bd: int,
+                           rdoq: bool = False):
+    """Per-block switchable-filter decision on the ME/compound winner
+    (twin of _interp_filter_select): the 3 candidate predictions, luma
+    SSE in int64, the rate-aware first-minimum argmin of rdcost(sse, lamq,
+    0 | 2 << RATE_Q), then the exact full loop of the winning prediction
+    with the single/compound MV bits, kept on the blocks that left
+    REGULAR. Every lane is recoded and selected, so nothing is read back.
+    Updates ``g`` (cost, qc, eo, rec, pred) and sets g["ftype"] [B]."""
+    bw, bh = common.leaf_wh(size)
+    tx_size = common.tx_size_for_rect(bw, bh, 0)
+    b = xs.shape[0]
+    device = xs.device
+    preds = [g["pred"]] + [_winner_pred_j(g, xs, ys, size, bd, f)
+                           for f in range(1, mc.SWITCHABLE_FILTERS)]
+    costs = []
+    for f, pred in enumerate(preds):
+        d = g["srcs"] - pred
+        rate = torch.full((b,), 0 if f == 0 else 2 << md.RATE_Q,
+                          dtype=torch.int64, device=device)
+        costs.append(_rdcost_j((d * d).sum(dim=(1, 2)), lamqv, rate))
+    ftype = torch.argmin(torch.stack(costs), dim=0)          # first min
+    pred = torch.stack(preds)[ftype, _ar(b, device)]
+    qc, eo, rec, dist, rate = _full_loop_j(
+        g["srcs"], pred, torch.zeros(b, dtype=torch.int32, device=device),
+        (0,), tx_size, size, qv, bd, 0, rdoq_lam_qv=lamqv if rdoq else None)
+    nz0 = (g["mv"].abs().sum(dim=1) > 0).long()
+    nz1 = (g["mv1"].abs().sum(dim=1) > 0).long()
+    mv_bits = torch.where(g["comp"], (3 << md.RATE_Q) + 256 * (nz0 + nz1),
+                          (2 << md.RATE_Q) + 256 * nz0)
+    redo = ftype != 0
+    r3 = redo[:, None, None]
+    g.update(ftype=ftype, pred=pred,
+             cost=torch.where(redo, _rdcost_j(dist, lamqv, rate + mv_bits),
+                              g["cost"]),
+             qc=torch.where(r3, qc, g["qc"]),
+             eo=torch.where(redo, eo, g["eo"]),
+             rec=torch.where(r3, rec, g["rec"]))
+
+
+def inter_tx_search_j(g, size, qv, bd: int, lamqv, rdoq: bool = False):
+    """Encode-pass tx-type sweep of decided inter blocks (twin of
+    md.inter_tx_search): with the winning prediction g["pred"] fixed,
+    every type of the inter ext-tx set in order through the full loop,
+    the DCT pass as the baseline, strict ``<`` folds and the in-place
+    ``cost - best_part + part`` update; the signalling rate is the
+    default-CDF bits of the inter_ext_tx symbol (host constants). Lanes
+    at qindex 0 keep DCT_DCT and their state. Updates ``g`` and, where
+    the set has more than DCT_DCT, sets g["tts"] [B] int64."""
+    from svt_av1_tpu_torch.entropy import tx_sets
+    from svt_av1_tpu_torch.entropy.cdf import default_tables
+    from svt_av1_tpu_torch.utils.blocks import TX_SIZE_SQR
+    bw, bh = common.leaf_wh(size)
+    tx_size = common.tx_size_for_rect(bw, bh, 0)
+    srcs, preds = g["srcs"], g["pred"]
+    b = srcs.shape[0]
+    device = srcs.device
+    set_type = tx_sets.ext_tx_set_type(tx_size, True, False)
+    if tx_sets.NUM_EXT_TX_SET[set_type] <= 1:
+        return
+    tts = torch.zeros(b, dtype=torch.int64, device=device)
+    eset = tx_sets.ext_tx_set(tx_size, True, False)
+    row = default_tables()["inter_ext_tx"][eset][int(TX_SIZE_SQR[tx_size])] \
+        .astype(np.int64)
+    pbl = md._prob_bits_lut()
+
+    def sig_bits(tt):
+        sym = int(tx_sets.EXT_TX_IND[set_type][tt])
+        hi = 32768 if sym == 0 else int(row[sym - 1])
+        return int(pbl[max(int(hi - row[sym]), 1)])
+
+    live = qv > 0
+    rlq = lamqv if rdoq else None
+    best_part = None
+    for tt in (int(t) for t in np.nonzero(tx_sets.EXT_TX_USED[set_type])[0]):
+        qc, eo, rec, dist, rate = _full_loop_j(
+            srcs, preds, torch.full((b,), tt, dtype=torch.int32,
+                                    device=device), (tt,),
+            tx_size, size, qv, bd, 0, rdoq_lam_qv=rlq)
+        part = _rdcost_j(dist, lamqv, rate + sig_bits(tt))
+        if best_part is None:                 # DCT_DCT baseline (tt == 0)
+            best_part = part
+            continue
+        better = (part < best_part) & live
+        b3 = better[:, None, None]
+        g.update(cost=torch.where(better, g["cost"] - best_part + part,
+                                  g["cost"]),
+                 qc=torch.where(b3, qc, g["qc"]),
+                 eo=torch.where(better, eo, g["eo"]),
+                 rec=torch.where(b3, rec, g["rec"]))
+        best_part = torch.where(better, part, best_part)
+        tts = torch.where(better, tt, tts)
+    g["tts"] = tts
+
+
+def _chroma_tx_types(g, tx_size: int, tx_uv: int):
+    """Inter chroma inherits the luma tx type (spec 8.3.2), demoted to
+    DCT where luma coded no coefficients or outside the chroma set: the
+    per-lane types [2B] int32 (U lanes, then V) and the static tuple of
+    the types they can take (the image of the luma set)."""
+    from svt_av1_tpu_torch.entropy import tx_sets
+    b = g["eo"].shape[0]
+    if "tts" not in g:
+        return torch.zeros(2 * b, dtype=torch.int32,
+                           device=g["eo"].device), (0,)
+    lut = np.array([common.chroma_tx_type_inter(t, tx_uv, False)
+                    for t in range(16)], np.int64)
+    used = tx_sets.EXT_TX_USED[tx_sets.ext_tx_set_type(tx_size, True, False)]
+    ctts = const(lut, g["eo"].device)[torch.where(g["eo"] > 0, g["tts"], 0)]
+    return (torch.cat([ctts, ctts]).to(torch.int32),
+            tuple(sorted({int(lut[t]) for t in np.nonzero(used)[0]})))
+
+
+def chroma_j(g, ubank, vbank, src_u, src_v, xs, ys, size, qv, lamqv,
+             bd: int, rdoq: bool = False):
+    """Both chroma planes of the winners as one [2B] batch over the
+    stacked U+V bank (V lanes offset their ref index by R): single-ref MC
+    or the compound average, with the blocks' interpolation filters
+    (g["ftype"], REGULAR without it), then the full loop with
+    ``plane_type`` 1 and the luma tx types inherited (g["tts"], DCT
+    without it). Returns (qc, eo, rec) [2B] (U lanes, then V)."""
+    bw, bh = common.leaf_wh(size)
+    cw, ch = bw >> 1, bh >> 1
+    tx_uv = common.tx_size_for_rect(cw, ch, 1)
+    n_refs = ubank.shape[0]
+    rlq = lamqv if rdoq else None
     cxs, cys = xs >> 1, ys >> 1
     cxs2 = torch.cat([cxs, cxs])
     cys2 = torch.cat([cys, cys])
     uvbank = torch.cat([ubank, vbank])
-    pos_uv = torch.cat([pos_chosen, pos_chosen + n_refs])
+    ft2 = torch.cat([g["ftype"], g["ftype"]]) if "ftype" in g else 0
+    pos_uv = torch.cat([g["pos"], g["pos"] + n_refs])
     csrc_u, _, _ = _gather_curs(src_u, cxs, cys, cw, ch)
     csrc_v, _, _ = _gather_curs(src_v, cxs, cys, cw, ch)
-    csrc2 = torch.cat([csrc_u, csrc_v])
-    mvs_uv = torch.cat([mv_s, mv_s])
+    mvs_uv = torch.cat([g["mv"], g["mv"]])
     pred_uv = dev.mc_block_batch_j(uvbank, cxs2, cys2, mvs_uv, cw, ch, ss=1,
-                                   bd=bd, ref_idx=pos_uv).long()
-    if ref_sel:
-        fref2 = torch.cat([fref, fref + n_refs])
-        bref2 = torch.cat([bref, bref + n_refs])
+                                   bd=bd, ref_idx=pos_uv, ftype=ft2).long()
+    if "fref" in g:
+        fref2 = torch.cat([g["fref"], g["fref"] + n_refs])
+        bref2 = torch.cat([g["bref"], g["bref"] + n_refs])
         u0 = mc_block_batch_conv_j(uvbank, cxs2, cys2, mvs_uv, cw, ch, ss=1,
-                                   bd=bd, ref_idx=fref2)
-        u1 = mc_block_batch_conv_j(uvbank, cxs2, cys2, torch.cat([mv1, mv1]),
-                                   cw, ch, ss=1, bd=bd, ref_idx=bref2)
-        comp2 = torch.cat([comp, comp])
+                                   bd=bd, ref_idx=fref2, ftype=ft2)
+        u1 = mc_block_batch_conv_j(uvbank, cxs2, cys2,
+                                   torch.cat([g["mv1"], g["mv1"]]), cw, ch,
+                                   ss=1, bd=bd, ref_idx=bref2, ftype=ft2)
+        comp2 = torch.cat([g["comp"], g["comp"]])
         pred_uv = torch.where(comp2[:, None, None],
                               compound_average_j(u0, u1, bd), pred_uv)
+    ctts, ctt_set = _chroma_tx_types(
+        g, common.tx_size_for_rect(bw, bh, 0), tx_uv)
     qcuv, eouv, recuv, _, _ = _full_loop_j(
-        csrc2.long(), pred_uv,
-        torch.zeros(2 * b, dtype=torch.int32, device=device), (0,), tx_uv,
-        (cw, ch), torch.cat([qv, qv]), bd, 1,
+        torch.cat([csrc_u, csrc_v]).long(), pred_uv, ctts, ctt_set,
+        tx_uv, (cw, ch), torch.cat([qv, qv]), bd, 1,
         rdoq_lam_qv=None if rlq is None else torch.cat([rlq, rlq]))
+    return qcuv, eouv, recuv
 
-    # --- the block reconstructions into the frame planes (the blocks of a
-    # group are disjoint: no index repeats)
-    i16 = torch.int16
+
+def scatter_recon(recon, g, uv, xs, ys, size):
+    """The group's block reconstructions into the frame planes (the blocks
+    of a group are disjoint: no index repeats); ``uv``: chroma_j's
+    output."""
+    bw, bh = common.leaf_wh(size)
+    cw, ch = bw >> 1, bh >> 1
+    b = xs.shape[0]
+    pix = recon[0].dtype
+    device = xs.device
     iy = ys[:, None, None] + _ar(bh, device)[None, :, None]
     ix = xs[:, None, None] + _ar(bw, device)[None, None, :]
-    recon[0][iy, ix] = rec_s.to(pix)
+    recon[0][iy, ix] = g["rec"].to(pix)
+    cys, cxs = ys >> 1, xs >> 1
     ciy = cys[:, None, None] + _ar(ch, device)[None, :, None]
     cix = cxs[:, None, None] + _ar(cw, device)[None, None, :]
-    recon[1][ciy, cix] = recuv[:b].to(pix)
-    recon[2][ciy, cix] = recuv[b:].to(pix)
-    return (cost_s, mv_s.to(i16), mv1.to(i16), pos_chosen.to(torch.int8),
-            comp, fsel.to(torch.int8), bsel.to(torch.int8), qc_s.to(i16),
-            eo_s.to(i16), qcuv[:b].to(i16), eouv[:b].to(i16),
-            qcuv[b:].to(i16), eouv[b:].to(i16))
+    recon[1][ciy, cix] = uv[2][:b].to(pix)
+    recon[2][ciy, cix] = uv[2][b:].to(pix)
+
+
+def group_outputs(g, uv) -> tuple:
+    """The 13 decision and coefficient outputs of the JAX shape-group
+    program, with its dtypes: (cost int64, mv int16, mv1 int16, ref
+    position int8, compound bool, fsel int8, bsel int8, qc_y int16,
+    eob_y int16, qc_u, eob_u, qc_v, eob_v int16), then the searches'
+    interpolation filter and luma tx type (int8; 0 where a search is
+    off)."""
+    i16, i8 = torch.int16, torch.int8
+    qcuv, eouv, _ = uv
+    b = g["cost"].shape[0]
+    zero = torch.zeros(b, dtype=i8, device=g["cost"].device)
+    return (g["cost"], g["mv"].to(i16), g["mv1"].to(i16), g["pos"].to(i8),
+            g["comp"], g["fsel"].to(i8), g["bsel"].to(i8), g["qc"].to(i16),
+            g["eo"].to(i16), qcuv[:b].to(i16), eouv[:b].to(i16),
+            qcuv[b:].to(i16), eouv[b:].to(i16),
+            g["ftype"].to(i8) if "ftype" in g else zero,
+            g["tts"].to(i8) if "tts" in g else zero)
+
+
+def shape_group(recon, pyrs, ubank, vbank, src_pyr, src_u, src_v, xs, ys,
+                size, qv, lamqv, fwd_pos: tuple, bwd_pos: tuple, bd: int,
+                rdoq: bool = False, filter_search: bool = False,
+                tx_search: bool = False):
+    """One shape group on tensors of one device, stage by stage (spans
+    me_rd, compound, interp_filter_search, inter_tx_search, as the JAX
+    package names them): recon: [y, u, v] frame planes, written in place
+    at the group's blocks; ubank/vbank: [R, Hc, Wc] padded chroma banks;
+    ``filter_search``/``tx_search``: the config's
+    enable_interp_filter_search / enable_tx_type_search. Returns
+    group_outputs."""
+    with span("me_rd"):
+        g = me_rd_j(pyrs, src_pyr, xs, ys, size, qv, lamqv, fwd_pos,
+                    bwd_pos, bd, rdoq)
+    with span("compound"):
+        compound_j(g, xs, ys, size, qv, lamqv, bd, rdoq)
+    if filter_search:
+        with span("interp_filter_search"):
+            interp_filter_select_j(g, xs, ys, size, qv, lamqv, bd, rdoq)
+    if tx_search:
+        with span("inter_tx_search"):
+            inter_tx_search_j(g, size, qv, bd, lamqv, rdoq)
+    uv = chroma_j(g, ubank, vbank, src_u, src_v, xs, ys, size, qv, lamqv,
+                  bd, rdoq)
+    scatter_recon(recon, g, uv, xs, ys, size)
+    return group_outputs(g, uv)
 
 
 def shape_group_issue(recon_planes, ref_pyrs_list, refs_u, refs_v,
                       src_pyr, src_u, src_v, xs, ys, size, qp, lam,
                       fwd_pos, bwd_pos, bd=8, rdoq=False, qv=None,
-                      lamv=None):
+                      lamv=None, filter_search=False, tx_search=False):
     """Enqueue one shape group on the planes' device without waiting for
     it (CUDA runs asynchronously): host block positions and quantizer
     vectors in, device outputs back. ``recon_planes`` are written in
-    place. Returns (recon_planes, the 13 outputs, b)."""
+    place. Returns (recon_planes, the 15 outputs, b)."""
     device = recon_planes[0].device
     b = len(xs)
     qvec, lamqv = quant_vectors(qp, lam, b, qv, lamv)
@@ -449,7 +666,7 @@ def shape_group_issue(recon_planes, ref_pyrs_list, refs_u, refs_v,
         const(np.asarray(xs, np.int64), device),
         const(np.asarray(ys, np.int64), device), size,
         const(qvec, device), const(lamqv, device), tuple(fwd_pos),
-        tuple(bwd_pos), bd, rdoq)
+        tuple(bwd_pos), bd, rdoq, filter_search, tx_search)
     return recon_planes, outs, b
 
 

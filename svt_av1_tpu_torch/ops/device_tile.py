@@ -561,20 +561,13 @@ def make_flip_body(class_spec: tuple, n_waves: int, bd: int,
     return program
 
 
-def host_recode_raises() -> None:
-    """Where the JAX package decides and recodes flips on the host (RDOQ
-    at qindex 0, which it gates per qindex there) the port raises."""
-    raise NotImplementedError(
-        "the host recode of intra flips at qindex 0 with RDOQ: not ported "
-        "yet (comes with the non-fused inter slice; see ROADMAP.md Queue 1)")
-
-
 def flip_apply_fused(enc, waves) -> None:
     """The whole intra-flip apply pass (inter.InterFrameEncoder's waves of
     accepted flips) on the recon's device. ``waves``: output of
     enc._flip_waves — lists of (r, c, size, li, mode) in coding order.
-    Raises NotImplementedError where the JAX package takes its host
-    recode (RDOQ at qindex 0)."""
+    At qindex 0 with RDOQ, where the JAX package recodes on the host
+    (``_flip_apply_wave``), the same integers come from here: the trim
+    leaves qindex-0 lanes untouched, as the host gates it off."""
     from svt_av1_tpu_torch.pipeline import avail, md
     from svt_av1_tpu_torch.pipeline.common import PendingQC
     cfg = enc.cfg
@@ -596,8 +589,6 @@ def flip_apply_fused(enc, waves) -> None:
     for w, wave in enumerate(waves):
         for (r, c, size, li, m) in wave:
             qi, lamq = lane_q(r, c)
-            if cfg.enable_rdoq and qi == 0:
-                host_recode_raises()
             classes.setdefault(common.leaf_wh(size), []) \
                 .append((w, r, c, li, m, qi, lamq))
     order = sorted(classes)

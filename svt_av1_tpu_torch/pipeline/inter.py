@@ -1,23 +1,24 @@
 """Inter frame encoder of the port (P and hierarchical-B frames).
 
-The port of the JAX package's ``pipeline/inter.py`` on its fused device
-path. Inter prediction has no in-frame dependency, so ME, mode decision,
+The port of the JAX package's ``pipeline/inter.py`` on its device path.
+Inter prediction has no in-frame dependency, so ME, mode decision,
 transform and reconstruction run batched over all blocks of one shape at
-once: one fused shape-group step per block shape on the torch device
+once: one shape-group step per block shape on the torch device
 (``ops/device_inter.shape_group``), issued for every group before any
-result is read back. The intra-flip pass then re-decides poorly predicted
-blocks as intra (a batched decision on the device, then an exact recode in
-dependency waves, ``ops/device_tile.flip_apply_fused``), and the deblocking
-filter, then CDEF and loop restoration where the config enables them
-(``pipeline/postfilter.py``), run on the device-resident recon. Only the
-syntax pass is sequential host work: it walks coding order, builds the
-ref-MV stack from coded state (``pipeline.mvp``), canonicalizes each
-block's MV into NEAREST/NEAR/GLOBAL/NEWMV and emits bits.
-
-The JAX package's non-fused host path (``_encode_blocks``, the tx-type and
-interpolation-filter searches) and its host flip recode are later slices:
-the config rejects the first two, and the flip pass raises
-NotImplementedError where the JAX package would take its host recode.
+result is read back. Where the config enables them (presets 0 and 1), the
+interpolation-filter search and the inter tx-type sweep run inside that
+step, between the luma decision and chroma, which then takes the blocks'
+filters and inherited tx types: the JAX package's non-fused path, whose
+host stages stay on the device here. The intra-flip pass then re-decides
+poorly predicted blocks as intra (a batched decision on the device, then
+an exact recode in dependency waves, ``ops/device_tile.flip_apply_fused``;
+at qindex 0 with RDOQ too, where the trim leaves qindex-0 lanes untouched
+as the JAX host recode does), and the deblocking filter, then CDEF and
+loop restoration where the config enables them (``pipeline/postfilter.py``),
+run on the device-resident recon. Only the syntax pass is sequential host
+work: it walks coding order, builds the ref-MV stack from coded state
+(``pipeline.mvp``), canonicalizes each block's MV into
+NEAREST/NEAR/GLOBAL/NEWMV and emits bits.
 
 Reference equivalents: MotionEstimationKernel (EbMotionEstimationProcess.c),
 EncDec inter path (EbCodingLoop.c), write_modes_b inter syntax
@@ -219,16 +220,16 @@ class InterFrameEncoder:
         larr = np.array([(r, c, wh[0], wh[1]) for r, c, wh in leaves],
                         dtype=np.int64)
         shape_key = larr[:, 2] * 1000 + larr[:, 3]
-        # one fused shape-group step per block shape (ME + RD + compound
-        # + both chroma planes), every group issued before any result is
-        # read back
+        # one shape-group step per block shape (ME + RD + compound, the
+        # searches the config enables, both chroma planes), every group
+        # issued before any result is read back
         batches = []
         for sk in np.unique(shape_key):
             sids = np.nonzero(shape_key == sk)[0]
             batches.append((larr[sids], sids,
                             (int(sk) // 1000, int(sk) % 1000)))
         with span("inter_blocks"):
-            self._encode_blocks_fused(batches)
+            self._encode_blocks(batches)
         if cfg.intra_in_inter:
             with span("intra_flip"):
                 self._intra_flip_pass(leaves)
@@ -351,14 +352,15 @@ class InterFrameEncoder:
             self.leaf_sizes, mi_row, mi_col, s4, h4, self.mi_rows,
             self.mi_cols) == PARTITION_VERT_A
 
-    # --- the fused shape groups ------------------------------------------------
-    def _encode_blocks_fused(self, batches) -> None:
-        """One fused shape-group step per batch covers the whole
-        multi-ref ME + RD + compound + chroma chain and scatters the
-        recon into the device frame planes. Every group is issued before
-        any result is read back; the small decision outputs come back
-        here, the coefficient tensors on the entropy thread (PendingQC,
-        whose copies start now).
+    # --- the shape groups ----------------------------------------------------
+    def _encode_blocks(self, batches) -> None:
+        """One shape-group step per batch (ops/device_inter.shape_group:
+        multi-ref ME + RD + compound, the interpolation-filter search and
+        the inter tx-type sweep where the config enables them, both chroma
+        planes) scatters the recon into the device frame planes. Every
+        group is issued before any result is read back; the small decision
+        outputs come back here, the coefficient tensors on the entropy
+        thread (PendingQC, whose copies start now).
 
         batches: [(blocks larr, ids, (bw, bh))]."""
         cfg = self.cfg
@@ -371,29 +373,33 @@ class InterFrameEncoder:
         issued = []
         with span("fused_issue", groups=len(batches)):
             for blocks, ids, wh in batches:
-                xs = blocks[:, 1] * 4
-                ys = blocks[:, 0] * 4
-                _, outs, b = di.shape_group_issue(
+                _, outs, _ = di.shape_group_issue(
                     self.recon, [self.ref_pyrs[r] for r in refs_order],
                     [self.refs[r][1] for r in refs_order],
                     [self.refs[r][2] for r in refs_order],
-                    self.src_pyr, self.src[1], self.src[2], xs, ys, wh,
-                    self.qp, self.lam, fwd_pos, bwd_pos, bd=cfg.bit_depth,
-                    rdoq=cfg.enable_rdoq)
-                issued.append((outs, b, ids))
+                    self.src_pyr, self.src[1], self.src[2],
+                    blocks[:, 1] * 4, blocks[:, 0] * 4, wh, self.qp,
+                    self.lam, fwd_pos, bwd_pos, bd=cfg.bit_depth,
+                    rdoq=cfg.enable_rdoq,
+                    filter_search=cfg.enable_interp_filter_search,
+                    tx_search=cfg.enable_tx_type_search)
+                issued.append((outs, ids))
         with span("fused_small_fetch"):
             small = [[outs[i].cpu().numpy()
-                      for i in (0, 1, 2, 3, 4, 5, 6, 8, 10, 12)]
-                     for outs, *_ in issued]
+                      for i in (0, 1, 2, 3, 4, 5, 6, 8, 10, 12, 13, 14)]
+                     for outs, _ in issued]
         fwd_ids = np.asarray(self.fwd_refs or [LAST_FRAME])
         bwd_ids = np.asarray(self.bwd_refs or [0])
-        for sm, (outs, b, ids) in zip(small, issued):
-            (cost, mv0, mv1, pos_c, comp, fsel, bsel, eo, eou, eov) = sm
+        for sm, (outs, ids) in zip(small, issued):
+            (cost, mv0, mv1, pos_c, comp, fsel, bsel, eo, eou, eov, ftype,
+             tts) = sm
             chosen_ref = np.asarray(refs_order)[pos_c.astype(np.int64)]
             self.mvs[ids] = mv0.astype(np.int64)
             self.block_ref[ids] = chosen_ref
             self.eobs[0, ids] = eo
             self.inter_cost[ids] = cost
+            self.interp_f[ids] = ftype
+            self.y_tx_type[ids] = tts
             if self.reference_select:
                 self.mvs1[ids] = np.where(comp[:, None],
                                           mv1.astype(np.int64), 0)
@@ -462,10 +468,6 @@ class InterFrameEncoder:
             cand.append((r, c, size, li))
         if not cand:
             return
-        if cfg.enable_rdoq and self.qp.qindex == 0:
-            # the JAX package decides and recodes these on the host
-            from svt_av1_tpu_torch.ops.device_tile import host_recode_raises
-            host_recode_raises()
         with span("flip_decision", n=len(cand)):
             flips = self._flip_decision_batch(cand, mode_bits)
         if not flips:
@@ -761,13 +763,21 @@ class InterFrameEncoder:
             pred = res.stack[0][0] if res.count > 1 else res.ref_list[0]
             mv_syntax.write_mv(self.w, self.nmv, mv[0] - pred[0],
                                mv[1] - pred[1])
-        # switchable filters (enable_interp_filter_search) are a later
-        # slice: every block codes REGULAR, which the frame header fixes
+        f_coded = 0
+        if cfg.enable_interp_filter_search:
+            if inter_modes.needs_interp_filter(mode, bw, bh,
+                                               gm_mv != (0, 0)):
+                f_coded = int(self.interp_f[li])
+                inter_modes.write_interp_filter(
+                    self.w, self.fc, self.mvp_state, mi_row, mi_col,
+                    ref, False, f_coded)
+            # else the decoder assumes REGULAR: only reachable with a
+            # zero gm MV, where phase-0 MC is filter-independent
         self.ctxs.set_mi(mi_row, mi_col, bsize, DC_PRED, skip)
         self.mvp_state.set_block(mi_row, mi_col, s4, ref, mv, mode,
                                  h4=h4)
         self.mvp_state.interp[mi_row:mi_row + h4,
-                              mi_col:mi_col + s4] = 0
+                              mi_col:mi_col + s4] = f_coded
         self._emit_coeffs(li, mi_row, mi_col, bsize, bw, bh, skip,
                           self._inter_tts(li, bw, bh))
 
@@ -822,11 +832,20 @@ class InterFrameEncoder:
         if mode in (NEW_NEWMV, NEAREST_NEWMV):
             mv_syntax.write_mv(self.w, self.nmv, mv1[0] - pred[1][0],
                                mv1[1] - pred[1][1])
+        f_coded = 0
+        if self.cfg.enable_interp_filter_search:
+            if inter_modes.needs_interp_filter(
+                    mode, bw, bh, gm_pair[0] != (0, 0),
+                    gm_pair[1] != (0, 0)):
+                f_coded = int(self.interp_f[li])
+                inter_modes.write_interp_filter(
+                    self.w, self.fc, self.mvp_state, mi_row, mi_col,
+                    ref0, True, f_coded)
         self.ctxs.set_mi(mi_row, mi_col, bsize, DC_PRED, skip)
         self.mvp_state.set_block(mi_row, mi_col, s4, ref0, mv0,
                                  mode, ref1=ref1, mv1=mv1, h4=h4)
         self.mvp_state.interp[mi_row:mi_row + h4,
-                              mi_col:mi_col + s4] = 0
+                              mi_col:mi_col + s4] = f_coded
         self._emit_coeffs(li, mi_row, mi_col, bsize, bw, bh, skip,
                           self._inter_tts(li, bw, bh))
 

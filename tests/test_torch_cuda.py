@@ -682,3 +682,59 @@ def test_postfilter_ra_on_card_equals_cpu(cuda):
         counts[d] = (spans["cdef"]["count"], spans["lr"]["count"])
     assert counts == {"cuda": (9, 9), "cpu": (9, 9)}
     assert ivf["cuda"] == ivf["cpu"]
+
+
+@pytest.mark.parametrize("preset", [0, 1])
+def test_search_presets_ra_on_card_equal_cpu(cuda, preset):
+    """Presets 0 and 1 random access hier-3, 9 frames at 448x128 with 4
+    tile columns: the non-fused inter path (the interpolation-filter
+    search, and at preset 0 the inter tx-type sweep) on every inter frame,
+    on the card as on the CPU, byte for byte."""
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    from svt_av1_tpu_torch.utils.trace import TRACER
+    frames = make_clip(w=448, h=128, frames=9, seed=3)
+    TRACER.enabled = True
+    TRACER.reset()
+    try:
+        ivf, waves = _streams(frames, preset=preset, intra_period=-1,
+                              hierarchical_levels=3, tile_columns=2)
+    finally:
+        TRACER.enabled = False
+    spans = TRACER.summary()
+    frames_of = collections.Counter(s["stage"] for s in TRACER.spans)
+    assert frames_of["inter_frame"] == 16                 # 8 per device
+    assert spans["interp_filter_search"]["count"] >= 16
+    assert ("inter_tx_search" in spans) == (preset == 0)
+    assert ivf["cuda"] == ivf["cpu"]
+
+
+def test_per_lane_filter_mc_at_the_inter_batch(cuda):
+    """Per-lane filter-type MC (single-ref and the compound CONV side) at
+    a 1080p shape group's batch: 8160 16x16 luma blocks and their 8x8
+    chroma, and 4x4 chroma (the 4-tap banks), over a stacked bank of
+    three 1080p references, on the card as on the CPU."""
+    from svt_av1_tpu_torch.ops import device_inter as di
+    from svt_av1_tpu_torch.ops import mc
+    rng = np.random.default_rng(17)
+    for (w, h, ss, plane_hw) in ((16, 16, 0, (1080, 1920)),
+                                 (8, 8, 1, (540, 960)),
+                                 (4, 4, 1, (540, 960))):
+        ph, pw = plane_hw
+        b = (ph // h) * (pw // w) if ss == 0 else 8160
+        bank = np.stack([mc.pad_reference(
+            rng.integers(0, 256, plane_hw).astype(np.uint8))
+            for _ in range(3)])
+        xs = rng.integers(0, pw - w + 1, b)
+        ys = rng.integers(0, ph - h + 1, b)
+        mvs = np.array([mc.clamp_mv_for_padding(m, x, y, w, h, pw, ph, ss)
+                        for m, x, y in zip(rng.integers(-300, 300, (b, 2)),
+                                           xs, ys)], np.int64)
+        ops = [torch.as_tensor(a) for a in
+               (bank, xs, ys, mvs, rng.integers(0, 3, b),
+                rng.integers(0, 3, b))]
+        for fn in (dev.mc_block_batch_j, di.mc_block_batch_conv_j):
+            got = fn(*[o.to(cuda) for o in ops[:4]], w, h, ss=ss,
+                     ref_idx=ops[4].to(cuda), ftype=ops[5].to(cuda))
+            want = fn(*ops[:4], w, h, ss=ss, ref_idx=ops[4],
+                      ftype=ops[5])
+            assert torch.equal(got.cpu(), want)

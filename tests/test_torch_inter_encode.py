@@ -118,9 +118,16 @@ def test_stream_api_hides_non_shown_frames():
 @pytest.mark.parametrize("field", ["enable_tx_type_search",
                                    "enable_interp_filter_search"])
 def test_non_fused_inter_tools_raise_not_implemented(field):
+    """The inter searches (the non-fused inter path) encode like the JAX
+    package: each is accepted all-intra and with inter frames, and a
+    low-delay stream with it equals the JAX host encoder's. (The name
+    dates from when these configs raised NotImplementedError.)"""
     base = dict(width=64, height=64, intra_modes=(0, 1, 2, 12))
     EncoderConfig(**base, intra_period=0, **{field: True})   # intra: fine
     for inter in (dict(intra_period=-1), dict(hierarchical_levels=3)):
-        with pytest.raises(NotImplementedError,
-                           match="non-fused inter slice"):
-            EncoderConfig(**base, **inter, **{field: True})
+        assert getattr(EncoderConfig(**base, **inter, **{field: True}),
+                       field)
+    jcfg = JaxConfig(**base, intra_period=-1, **{field: True})
+    cfg = config_from_jax(dataclasses.asdict(jcfg), device="cpu")
+    frames = make_clip(w=64, h=64, frames=2, seed=6)
+    assert encode_ivf(frames, cfg) == jax_encode_ivf(frames, jcfg)

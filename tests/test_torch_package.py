@@ -147,14 +147,15 @@ def test_postfilter_presets_run_all_intra(preset):
                                    dict(intra_period=-1,
                                         hierarchical_levels=3)])
 def test_postfilter_presets_with_inter_frames_raise(preset, inter):
-    """With inter frames presets 0 and 1 need the interpolation-filter
-    search (and preset 0 the inter tx-type search): the non-fused inter
-    slice."""
+    """Presets 0 and 1 with inter frames build: they run the
+    interpolation-filter search (and preset 0 the inter tx-type search)
+    with CDEF on. (The name dates from when these configs raised.)"""
     from svt_av1_tpu_torch.app.cli import preset_config
-    with pytest.raises(NotImplementedError,
-                       match="non-fused inter slice"):
-        preset_config(width=1920, height=1080, preset=preset,
-                      device="cpu", **inter)
+    cfg = preset_config(width=1920, height=1080, preset=preset,
+                        device="cpu", **inter)
+    assert cfg.enable_interp_filter_search
+    assert cfg.enable_tx_type_search == (preset == 0)
+    assert cfg.intra_period == -1 and cfg.enable_cdef
 
 
 @pytest.mark.parametrize("field,value", [("intra_period", -1),

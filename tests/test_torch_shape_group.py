@@ -102,9 +102,12 @@ def test_shape_group_matches_jax(frame_set, size, ref_sel, per_lane):
         tuple(u8(p) for p in src_pyr), u8(src[1]), u8(src[2]), xs, ys, size,
         qp, lam, fwd, bwd, bd=8, rdoq=True, qv=qv, lamv=lamv)
     assert tb == jb == b
-    assert len(touts) == len(jouts) == 13
+    # the JAX program's 13 outputs, then the searches' filter and luma tx
+    # type: REGULAR and DCT_DCT with both searches off
+    assert len(jouts) == 13 and len(touts) == 15
     for i, (g, w) in enumerate(zip(touts, jouts)):
         _eq(g, np.asarray(w)[:b])
+    assert not touts[13].any() and not touts[14].any()
     for g, w in zip(trec, jrec):
         _eq(g, w)
 
@@ -223,8 +226,15 @@ def _flip_encoders(leaves=None, pick=None):
     return jenc, tenc, flips
 
 
-def _assert_flip_apply_equal(jenc, tenc, flips, waves):
-    assert jdt.flip_apply_fused(jenc, waves)
+def _assert_flip_apply_equal(jenc, tenc, flips, waves, host=False):
+    """The port's flip apply against the JAX package's fused programs, or
+    with ``host`` against its host recode (``_flip_apply_wave``)."""
+    if host:
+        assert not jdt.flip_apply_fused(jenc, waves)   # it asks for the host
+        for wave in waves:
+            jenc._flip_apply_wave(wave)
+    else:
+        assert jdt.flip_apply_fused(jenc, waves)
     tdt.flip_apply_fused(tenc, waves)
     for g, w in zip(tenc.recon, jenc.recon):
         _eq(g, w)
@@ -263,9 +273,14 @@ def test_flip_apply_wide_wave_matches_jax():
 
 
 def test_flip_apply_at_qindex_0_with_rdoq_raises():
-    """Where the JAX package takes its host recode the port raises."""
-    _, tenc, flips = _flip_encoders()
-    tenc.qp = jquant.make_quant_params(0)
-    tenc._qp_for = (lambda qidx: (tenc.qp, 1.0))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdt.flip_apply_fused(tenc, tenc._flip_waves(flips))
+    """The flip apply at qindex 0 with RDOQ matches the JAX host recode
+    (``_flip_apply_wave``, which gates the trim off there): the port's
+    fused programs give the same integers, since the trim leaves qindex-0
+    lanes untouched. (The name dates from when this case raised.)"""
+    jenc, tenc, flips = _flip_encoders()
+    assert jenc.cfg.enable_rdoq
+    for enc in (jenc, tenc):
+        enc.qp = jquant.make_quant_params(0)
+        enc.lam = jrd.rd_lambda(0, 8)
+    waves = jenc._flip_waves(flips)
+    _assert_flip_apply_equal(jenc, tenc, flips, waves, host=True)
