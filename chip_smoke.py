@@ -68,15 +68,32 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    key-frame and inter times, per inter frame the stage spans, the
    blocks per filter type and the tx-type histogram, and the largest
    shape group's stages replayed under torch.profiler;
-9. each mode and row length timed at the heaviest shape the five
+9. ``[aq]``, the rate and analysis slice's adaptive quantization: the
+   random-access clip of 5 again with variance AQ and SATD partition
+   scoring (``adaptive_quantization=1, intra_dp_satd=True``), through
+   ``encode_ivf`` on ``cuda``, whose sha256 must equal the JAX package's
+   (``GOLDEN_AQ_*``); the key frame must run the per-wave loop
+   (``_code_wave``) and never the frame program, the SATD twin must run
+   in its partition DP on the card (its largest issue is then held
+   against the CPU run), every frame must code SBs off its base qindex
+   and the fused kernel must be launched with rows of differing qindex
+   in the key frame and in the inter frames (a spy on ``qv``); per frame
+   its qindex, the SBs off it and the kernel launches, the spans;
+10. ``[rc]``: the same clip with TPL AQ, VBR at 6 Mb/s with a lookahead
+   of 8 frames, film grain (strength 10) and source denoising, whose
+   sha256 must equal the JAX package's (``GOLDEN_RC_*``); the
+   controller's qindex must vary over the frames, every frame header must
+   carry the grain parameters and the key frame must run the frame
+   program; per frame its qindex and the SBs with a TPL delta;
+11. each mode and row length timed at the heaviest shape the seven
    encodes gave it; one whole fused key frame program (the all-intra
    clip's key frame, replayed under torch.profiler for its wall, device
    busy time and device operations), beside it one wave of the per-wave
    path through ``decide_block_batch_dev``, and one (step, shape) group
    of the directional key frame replayed under torch.profiler; the
    seconds each phase took (``[time]``);
-10. a ``{"kernels": [...]}`` line, one entry per mode and row length
-   (``launches``: the sum over the five encodes; ``launches_by_path``:
+12. a ``{"kernels": [...]}`` line, one entry per mode and row length
+   (``launches``: the sum over the seven encodes; ``launches_by_path``:
    each encode's own count, and the RA encode's inside its inter frames),
    the card's line, and last the device line.
 
@@ -136,6 +153,22 @@ GOLDEN_SEARCH_SHA256 = \
 GOLDEN_SEARCH_BYTES = 426525
 SEARCH_SPANS = ("me_rd", "compound", "interp_filter_search",
                 "inter_tx_search")
+# the JAX package's stream of the AQ phase: the random-access clip and
+# config of [inter] with adaptive_quantization=1 (variance AQ) and
+# intra_dp_satd=True (SATD partition scoring)
+GOLDEN_AQ_SHA256 = \
+    "deca178757e6816dd0e5124b6c9e8f1fbb2eb95838880169f372090ede85325a"
+GOLDEN_AQ_BYTES = 419484
+# the JAX package's stream of the rate-control phase: the same clip and
+# config with adaptive_quantization=2 (TPL AQ), VBR at 6 Mb/s with a
+# lookahead of 8 frames, film_grain_strength=10 and
+# enable_source_denoise=True
+GOLDEN_RC_SHA256 = \
+    "2a987a17a54bd986d71f0eb323d48bf21532fd75dd1a1d0d8f1227ecfb97a1a9"
+GOLDEN_RC_BYTES = 292529
+RC_TARGET_BPS, RC_LOOKAHEAD, RC_GRAIN = 6_000_000, 8, 10
+TOOL_SPANS = ("keyframe", "intra_partition_dp", "waves", "intra_tiles_fused",
+              "inter_frame", "dlf", "entropy", "tpl", "denoise", "grain")
 # synthetic large-batch checks at the most rows a 1080p shape group can
 # give the quantization stage: the [2B] single-ref pair of 8160 16x16 luma
 # blocks (n = 256) and U+V of their 8x8 chroma. The RA clip's partition DP
@@ -1054,6 +1087,227 @@ def phase_search(torch):
         shapes, biggest
 
 
+def _tool_spies(frames_rec, satd):
+    """Spies of the rate and analysis phases: per coded frame (in coding
+    order) its kind, base qindex, SB qindex map, whether its headers carry
+    film grain parameters, its kernel launches and how many of them had
+    rows of differing qindex (a spy on ``qv``); and into ``satd`` every
+    SATD issue of the intra partition DP (``devices``) and the largest
+    call's host inputs (``largest``) for the check against the CPU."""
+    from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.pipeline import encoder as tenc
+    from svt_av1_tpu_torch.pipeline import inter as tinter
+    from svt_av1_tpu_torch.pipeline import rd as trd
+    from svt_av1_tpu_torch.pipeline import wavefront as twf
+    cur = [None]
+
+    def frame_spy(kind):
+        def spy(fn):
+            def call(*a, **k):
+                cur[0] = {"kind": kind, "launches": 0, "mixed": 0}
+                frames_rec.append(cur[0])
+                try:
+                    return fn(*a, **k)
+                finally:
+                    cur[0] = None
+            return call
+        return spy
+
+    def enc_spy(fn):
+        """Keeps the frame encoder of the current frame."""
+        def call(self, *a, **k):
+            cur[0]["enc"] = self
+            return fn(self, *a, **k)
+        return call
+
+    def qv_spy(fn):
+        def call(mode, coeff, scan, qv, *a, **k):
+            rec = cur[0]
+            if rec is not None and qv.numel():
+                rec["launches"] += 1
+                rec["mixed"] += int(bool((qv != qv[0]).any()))
+            return fn(mode, coeff, scan, qv, *a, **k)
+        return call
+
+    def satd_spy(fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            satd["devices"].append(out.device.type)
+            if len(a[0]) > len(satd["largest"][0][0]):
+                satd["largest"] = (a, k)
+            return out
+        return call
+
+    satd.update(devices=[], largest=(([],), {}))
+    return [(tenc.Encoder, "_encode_key", frame_spy("key")),
+            (tenc.Encoder, "_encode_inter", frame_spy("inter")),
+            (twf.WavefrontIntraEncoder, "_package_compute", enc_spy),
+            (tinter.InterFrameEncoder, "encode_compute", enc_spy),
+            (dev, "quant_stage_launch", qv_spy),
+            (trd, "satd_modes", satd_spy)]
+
+
+def _frame_summary(rec) -> dict:
+    """One coded frame's facts from its spy record."""
+    enc = rec.pop("enc")
+    base = enc.cfg.base_q_idx
+    qmap = enc.qmap
+    return {"kind": rec["kind"], "base_qindex": base,
+            "sbs_off_base": 0 if qmap is None else int((qmap != base).sum()),
+            "qindex_range": None if qmap is None
+            else [int(qmap.min()), int(qmap.max())],
+            "grain_params": bool(enc.seq.film_grain_params_present),
+            "kernel_launches": rec["launches"],
+            "mixed_qindex_launches": rec["mixed"]}
+
+
+def _tools_encode(torch, tag, cfg, golden_bytes, golden_sha):
+    """Encode the random-access clip with ``cfg`` under the tool spies,
+    print its stream, times, spans and per-frame facts, and check the
+    stream against its golden. Returns (result, shapes, frames, SATD
+    calls, key frame records, tracer)."""
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=WIDTH, h=HEIGHT, frames=RA_FRAMES, seed=3)
+    recs, satd = [], {}
+    ivf, dt, launches, shapes, plain_calls, tracer, keys = _encode_counted(
+        torch, frames, cfg, spies=_tool_spies(recs, satd))
+    per_frame = [_frame_summary(r) for r in recs]
+    sha = hashlib.sha256(ivf).hexdigest()
+    spans = tracer.summary()
+    key_s = sum(s["dur"] for s in tracer.spans if s["stage"] == "keyframe")
+    n_inter = RA_FRAMES - 1
+    print(f"[{tag}] {WIDTH}x{HEIGHT} random access hier-{RA_LEVELS} preset "
+          f"{PRESET} qp {QP}: {RA_FRAMES} frames in {dt:.2f} s "
+          f"({dt / RA_FRAMES:.2f} s/frame), {len(ivf)} bytes, sha256 {sha}",
+          flush=True)
+    print(f"[{tag}] key frame {key_s:.2f} s (its compute); inter frames "
+          f"{(dt - key_s) / n_inter:.3f} s/frame (wall after the key "
+          f"frame's compute, entropy drained, / {n_inter})", flush=True)
+    for i, f in enumerate(per_frame):
+        print(f"[{tag}] frame {i} (coding order, {f['kind']}): qindex "
+              f"{f['base_qindex']}, SBs off it {f['sbs_off_base']} "
+              f"(range {f['qindex_range']}), grain params "
+              f"{f['grain_params']}, kernel launches "
+              f"{f['kernel_launches']} ({f['mixed_qindex_launches']} with "
+              f"rows of differing qindex)", flush=True)
+    for stage in TOOL_SPANS:
+        v = spans.get(stage, {"count": 0, "total_s": 0.0})
+        print(f"[{tag}] span {stage}: {v['count']} x, {v['total_s']} s",
+              flush=True)
+    _check_stream(tag, ivf, sha, golden_bytes, golden_sha)
+    if plain_calls:
+        raise SystemExit(f"the plain trim or rate ran on the main path: "
+                         f"{plain_calls}")
+    if len(per_frame) != RA_FRAMES or per_frame[0]["kind"] != "key":
+        raise SystemExit(f"{tag}: {len(per_frame)} coded frames")
+    res = {"seconds": dt, "seconds_per_frame": dt / RA_FRAMES,
+           "keyframe_compute_s": key_s,
+           "inter_s_per_frame": (dt - key_s) / n_inter,
+           "frames": per_frame, "bytes": len(ivf), "sha256": sha,
+           "launches": launches, "launch_shapes": _shape_keys(shapes),
+           "plain_trim_rate_calls": plain_calls, "spans": spans}
+    return res, shapes, satd, keys, tracer
+
+
+def phase_aq(torch):
+    """Variance AQ with SATD partition scoring on the random-access clip:
+    the key frame on the per-wave loop with per-lane qindex (the frame
+    program takes one qindex), the inter frames' shape groups and flips
+    with per-lane qindex, the SATD twin in the key frame's DP. Returns
+    (result, {(mode, B, n, log_scale): launches})."""
+    import dataclasses
+
+    import numpy as np
+
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops.device_md import satd_modes
+    cfg = dataclasses.replace(preset_config(
+        width=WIDTH, height=HEIGHT, qp=QP, preset=PRESET, intra_period=-1,
+        hierarchical_levels=RA_LEVELS, device="cuda"),
+        adaptive_quantization=1, intra_dp_satd=True)
+    res, shapes, satd, keys, tracer = _tools_encode(
+        torch, "aq", cfg, GOLDEN_AQ_BYTES, GOLDEN_AQ_SHA256)
+    devices = satd["devices"]
+    frames = res["frames"]
+    programs = [p for r in keys["frames"] for p in r["programs"]]
+    print(f"[aq] key frame: per-wave loop {keys['wave_tiles']} tiles, "
+          f"{keys['wave_steps']} steps, {keys['code_wave']} (step, shape) "
+          f"groups; frame programs {len(programs)}; SATD issues "
+          f"{len(devices)} on {sorted(set(devices))}", flush=True)
+    if not keys["code_wave"] or programs:
+        raise SystemExit(f"aq: the key frame must run the per-wave loop "
+                         f"({keys['code_wave']} groups) and no frame "
+                         f"program ({len(programs)})")
+    if not devices or set(devices) != {"cuda"}:
+        raise SystemExit(f"aq: the SATD twin ran on {devices}")
+    for kind in ("key", "inter"):
+        mixed = [f["mixed_qindex_launches"] for f in frames
+                 if f["kind"] == kind]
+        if not all(f["sbs_off_base"] for f in frames if f["kind"] == kind):
+            raise SystemExit(f"aq: a {kind} frame coded no SB off its base "
+                             f"qindex")
+        if not any(mixed):
+            raise SystemExit(f"aq: no {kind} frame launched the kernel "
+                             f"with rows of differing qindex")
+    # the largest SATD issue of the DP again, on the card and on the CPU
+    a, k = satd["largest"]
+    got = satd_modes(*a, **k).cpu()
+    want = satd_modes(*a, **{**k, "device": "cpu"})
+    if not torch.equal(got, want):
+        raise SystemExit("aq: the SATD twin on the card differs from its "
+                         "CPU run")
+    print(f"[aq] stream equals the JAX golden; key frame on _code_wave, "
+          f"run_tiles_fused never; SATD twin on the card, its largest "
+          f"issue (B={len(a[0])}, size {a[6]}) equal to the CPU run; "
+          f"kernel launches with mixed qindex per frame "
+          f"{[f['mixed_qindex_launches'] for f in frames]}; plain "
+          f"rdoq_trim_j / _rate_cdf_j calls 0", flush=True)
+    res.update(satd_issues=len(devices), satd_check_b=len(a[0]),
+               waves={k_: keys[k_] for k_ in ("wave_tiles", "wave_steps",
+                                              "code_wave")},
+               mixed_total=int(np.sum([f["mixed_qindex_launches"]
+                                       for f in frames])))
+    return res, shapes
+
+
+def phase_rc(torch):
+    """VBR with lookahead, TPL AQ, film grain and source denoising on the
+    random-access clip. Returns (result, {(mode, B, n, log_scale):
+    launches})."""
+    import dataclasses
+
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.config import RateControlMode
+    cfg = dataclasses.replace(preset_config(
+        width=WIDTH, height=HEIGHT, qp=QP, preset=PRESET, intra_period=-1,
+        hierarchical_levels=RA_LEVELS, device="cuda"),
+        adaptive_quantization=2, rate_control_mode=RateControlMode.VBR,
+        target_bit_rate=RC_TARGET_BPS, look_ahead_distance=RC_LOOKAHEAD,
+        film_grain_strength=RC_GRAIN, enable_source_denoise=True)
+    res, shapes, _, keys, tracer = _tools_encode(
+        torch, "rc", cfg, GOLDEN_RC_BYTES, GOLDEN_RC_SHA256)
+    frames = res["frames"]
+    qindex = [f["base_qindex"] for f in frames]
+    tpl = [f["sbs_off_base"] for f in frames if f["kind"] == "inter"]
+    rate = res["bytes"] * 8 * 30 / RA_FRAMES
+    print(f"[rc] per-frame qindex (coding order) {qindex}; SBs with a TPL "
+          f"delta per inter frame {tpl}; {rate / 1e6:.3f} Mb/s against the "
+          f"{RC_TARGET_BPS / 1e6:.1f} Mb/s target", flush=True)
+    if not any(tpl):
+        print("[rc] the TPL map is all zero on every frame of this clip "
+              "(the CPU tests hold TPL deltas)", flush=True)
+    if len(set(qindex)) < 2:
+        raise SystemExit(f"rc: the controller's qindex is constant: {qindex}")
+    if not all(f["grain_params"] for f in frames):
+        raise SystemExit("rc: a frame header lacks the film grain params")
+    key = _keyframe_report("rc", keys, tracer, TILES)
+    print("[rc] stream equals the JAX golden; qindex varies by frame; film "
+          "grain params in every frame header; the key frame in the frame "
+          "program; plain rdoq_trim_j / _rate_cdf_j calls 0", flush=True)
+    res.update(keyframes=key, qindex=qindex, tpl_sbs=tpl, bits_per_s=rate)
+    return res, shapes
+
+
 def phase_postfilter_profile(torch, replay) -> dict:
     """One inter frame's post-filters replayed from clones of its
     deblocked planes: CDEF + LR together (``postfilter.run_postfilters``),
@@ -1385,17 +1639,23 @@ def main() -> int:
                                          torch)
     search_res, search_shapes, search_group = timed("search", phase_search,
                                                     torch)
+    aq_res, aq_shapes = timed("aq", phase_aq, torch)
+    rc_res, rc_shapes = timed("rc", phase_rc, torch)
     by_path = {"all_intra": _by_mode_n(shapes),
                "random_access": _by_mode_n(inter_shapes),
                "ra_inter_frames": _by_mode_n(inter_frame_shapes),
                "directional": _by_mode_n(dir_shapes),
                "postfilter": _by_mode_n(pf_shapes),
-               "search": _by_mode_n(search_shapes)}
+               "search": _by_mode_n(search_shapes),
+               "aq": _by_mode_n(aq_shapes),
+               "rc": _by_mode_n(rc_shapes)}
     shapes = collections.Counter(shapes)
     shapes.update(inter_shapes)
     shapes.update(dir_shapes)
     shapes.update(pf_shapes)
     shapes.update(search_shapes)
+    shapes.update(aq_shapes)
+    shapes.update(rc_shapes)
     kernels = timed("kernels", kernel_entries, torch, by_path, shapes,
                     env["int32_ops_per_s"])
     group_prof = timed("inter-profile", phase_group_profile, torch, biggest)
@@ -1415,7 +1675,7 @@ def main() -> int:
         json.dump({"env": env, "build": build, "kernel_grid": grid,
                    "slice": slice_res, "inter": inter_res,
                    "directional": dir_res, "postfilter": pf_res,
-                   "search": search_res,
+                   "search": search_res, "aq": aq_res, "rc": rc_res,
                    "kernels": kernels, "shape_group_profile": group_prof,
                    "keyframe_program_profile": key_prof,
                    "wave_profile": prof,

@@ -11,9 +11,11 @@ back to the CPU.
 The port covers all-intra streams (with the normative intra edge filter
 of the directional presets), low-delay P and hierarchical-B random access
 (compound prediction, TMVP, the intra-flip pass, and the inter
-interpolation-filter and tx-type searches) and the in-loop post-filters.
-``__post_init__`` raises ``NotImplementedError`` for
-every tool that a later slice brings.
+interpolation-filter and tx-type searches), the in-loop post-filters,
+variance and TPL adaptive quantization, VBR rate control with lookahead,
+film grain (flat and auto-estimated), source denoising and SATD
+partition scoring. ``__post_init__`` raises ``NotImplementedError`` for
+``mesh_shape``: multi-device sharding comes with a later slice.
 """
 
 from __future__ import annotations
@@ -218,22 +220,9 @@ class EncoderConfig:
 
 
 def _reject_later_slices(cfg: EncoderConfig) -> None:
-    """Raise NotImplementedError for a tool the port does not run yet."""
-    later = [
-        (cfg.adaptive_quantization != 0, "adaptive quantization",
-         "the AQ slice"),
-        (cfg.rate_control_mode != RateControlMode.CQP
-         or cfg.target_bit_rate > 0, "VBR rate control", "the VBR slice"),
-        (cfg.film_grain_strength != 0 or cfg.film_grain_params is not None,
-         "film grain", "the film-grain slice"),
-        (cfg.enable_source_denoise, "source denoise", "the analysis slice"),
-        (cfg.mesh_shape is not None, "multi-device tile sharding",
-         "the multi-device slice"),
-        (cfg.intra_dp_satd, "SATD partition scoring",
-         "the SATD scoring slice"),
-    ]
-    for hit, what, slice_name in later:
-        if hit:
-            raise NotImplementedError(
-                f"{what}: not ported yet (comes with {slice_name}; see "
-                f"ROADMAP.md Queue 1)")
+    """Raise NotImplementedError for a tool the port does not run yet:
+    the multi-device tile sharding (``mesh_shape``)."""
+    if cfg.mesh_shape is not None:
+        raise NotImplementedError(
+            "multi-device tile sharding: not ported yet (comes with the "
+            "multi-device slice; see ROADMAP.md Queue 1)")

@@ -36,6 +36,18 @@ def read_delta_qindex(r, fc) -> int:
     return -abs_v if r.read_bit() else abs_v
 
 
+def write_delta_to(w, fc, cur_qindex: int, target: int,
+                   delta_q_res: int) -> int:
+    """Code the SB delta that moves the running qindex from
+    ``cur_qindex`` to ``target`` (a multiple of 1 << delta_q_res away);
+    returns the new running qindex."""
+    d = (target - cur_qindex) >> delta_q_res
+    write_delta_qindex(w, fc, d)
+    new = apply_delta(cur_qindex, d, delta_q_res)
+    assert new == target
+    return new
+
+
 def apply_delta(prev_qindex: int, delta: int, delta_q_res: int) -> int:
     """CurrentQIndex update (spec 5.11.5): clamp keeps 0 (lossless)
     unreachable."""

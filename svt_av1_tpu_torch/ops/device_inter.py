@@ -98,10 +98,13 @@ def _gather_curs(plane, xs, ys, bw: int, bh: int):
     return take2(plane, iy, ix).to(torch.int32), iy, ix
 
 
-def fullpel_search_j(ref_pyr, src_pyr, xs, ys, size, max_range: int = 24):
+def fullpel_search_j(ref_pyr, src_pyr, xs, ys, size, max_range: int = 24,
+                     plane_hw=None):
     """Twin of me.fullpel_search (pyramids passed in): HME 1/4 -> 1/2 ->
     full, then the clamp that keeps the MC window of any refined sub-pel
-    candidate inside the padded reference (whole pels toward zero)."""
+    candidate inside the padded reference (whole pels toward zero).
+    ``plane_hw``: the (h, w) of the plane that clamp sees, where it is not
+    the full source level's (the bucket-padded planes)."""
     ref_full, ref_h, ref_q = ref_pyr
     src_full, src_h, src_q = src_pyr
     bw, bh = common.leaf_wh(size)
@@ -130,7 +133,7 @@ def fullpel_search_j(ref_pyr, src_pyr, xs, ys, size, max_range: int = 24):
         center = zero
         radius0 = max(4, max_range // 2)
     mvs, cost = _exhaustive_j(ref_full, c0, iy0, ix0, center, radius0)
-    h, w = src_full.shape
+    h, w = src_full.shape if plane_hw is None else plane_hw
     margin = (mc.REF_PAD - 5) << 2
     r8 = torch.minimum(torch.maximum(mvs[:, 0] * 8, -(ys << 2) - margin),
                        ((h - ys - bh) << 2) + margin)
@@ -796,9 +799,13 @@ def dp_all(ref_pyr, src_pyr, w_eff: int, h_eff: int, sizes: tuple,
     square search (the root a full HME; children refine around their
     parent's MV) and every rect/4:1 arm refine around its node's square
     MV. Returns [mvs int16, sse int64] per depth, each followed by its
-    arms'."""
+    arms'. The root search clamps its MVs to the 64-padded frame, not to
+    the bucket-padded source plane: the JAX package's host DP searches
+    the 64-padded luma (its device twin clamps to the bucket, and the two
+    differ where the bucket is larger and an MV reaches the clamp)."""
     device = ref_pyr[0].device
     src_full = src_pyr[0]
+    plane_hw = (-(-h_eff // 64) * 64, -(-w_eff // 64) * 64)
 
     def grid(size):
         gx, gy = np.meshgrid(np.arange(0, w_eff, size),
@@ -812,7 +819,8 @@ def dp_all(ref_pyr, src_pyr, w_eff: int, h_eff: int, sizes: tuple,
         xs = const(gx.astype(np.int64), device)
         ys = const(gy.astype(np.int64), device)
         if parent_mvs is None:
-            mvs, _ = fullpel_search_j(ref_pyr, src_pyr, xs, ys, size)
+            mvs, _ = fullpel_search_j(ref_pyr, src_pyr, xs, ys, size,
+                                      plane_hw=plane_hw)
         else:
             pcols = (w_eff + parent_size - 1) // parent_size
             sidx = const((gy // parent_size) * pcols + gx // parent_size,

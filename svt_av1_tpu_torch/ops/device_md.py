@@ -631,3 +631,42 @@ def decide_cost_issue(plane, srcs, above1, left1, ha, hl, cands, qp,
                           bd, nfl, False, False, False, tx_search, rdoq)
     ins = _upload((srcs, above1, left1, ha, hl), bd, device)
     return fn(*ins, None, const(qvec, device), const(lamqv, device))[5]
+
+
+# --- SATD open-loop depth scoring (intra partition DP) ---------------------------
+# The reference's OIS scores open-loop intra candidates by the SATD of the
+# prediction residual (IntraOpenLoopSearchTheseModesOutputBest,
+# EbMotionEstimation.c:7419) instead of a full T/Q loop; the partition DP
+# only needs relative costs. Twin of the JAX package's satd_modes_dev.
+
+@functools.lru_cache(maxsize=32)
+def _hadamard_t(n: int, device: torch.device) -> torch.Tensor:
+    return const(common.hadamard_n(n), device, torch.float64)
+
+
+def satd_modes(srcs, above1, left1, ha, hl, modes, size, bd: int = 8,
+               device="cuda") -> torch.Tensor:
+    """[B] int64 min over ``modes`` of the size-matched Hadamard SATD
+    (tile cap 32) of each block's prediction residual, computed on
+    ``device`` from host blocks (the real lanes only: no bucket padding)
+    and returned without waiting for it. The transforms run as float64
+    products, exact here: with |residual| < 2^10 and tiles of at most
+    32x32 every product entry is an integer below 2^21 and every block
+    sum below 2^33 (CUDA has no int64 matmul)."""
+    srcs, above1, left1, ha, hl = _upload((srcs, above1, left1, ha, hl),
+                                          bd, device)
+    bw, bh = common.leaf_wh(size)
+    tw, th = min(bw, 32), min(bh, 32)
+    hh = _hadamard_t(th, srcs.device)
+    hw = _hadamard_t(tw, srcs.device)
+    srcs = srcs.to(torch.int64)
+    above1, left1 = above1.to(torch.int32), left1.to(torch.int32)
+    best = None
+    for m in modes:
+        p = predict_any_j(m, 0, above1, left1, bw, bh, ha, hl, bd)
+        r = (srcs - p.to(torch.int64)).reshape(
+            -1, bh // th, th, bw // tw, tw).transpose(2, 3).to(torch.float64)
+        s = torch.matmul(torch.matmul(hh, r), hw).abs().sum(
+            dim=(1, 2, 3, 4)).to(torch.int64)
+        best = s if best is None else torch.minimum(best, s)
+    return best

@@ -492,8 +492,12 @@ def _flip_stage(shape: tuple, bd: int, rdoq: bool = False):
             srcs_c = _gather(src[plane], cxs, cys, cw_, ch_).long()
             predc = select(modes, fm, lambda m: predict_any_j(
                 m, 0, a1c, l1c, cw_, ch_, ha, hl, bd), b, ch_, cw_, device)
+            # plane type 0 (the luma trim and rate tables) in both chroma
+            # loops: the JAX package's host recode (_flip_apply_wave), whose
+            # streams are the reference, codes them so; its device twin
+            # takes the chroma tables and can pick otherwise
             qcp, eop, recp, dist, rate = _full_loop_j(
-                srcs_c, predc, tts, tt_set, tx_uv, (cw_, ch_), qv, bd, 1,
+                srcs_c, predc, tts, tt_set, tx_uv, (cw_, ch_), qv, bd, 0,
                 rdoq_lam_qv=rlq)
             cost_m = _rdcost_j(dist, lamqv, rate)
             cfl = None
@@ -504,7 +508,7 @@ def _flip_stage(shape: tuple, bd: int, rdoq: bool = False):
                 cpred = cfl_predict_j(dc, ac, alpha, bd).long()
                 qc2, eo2, rec2, dist2, rate2 = _full_loop_j(
                     srcs_c, cpred, zeros_tt, (0,), tx_uv, (cw_, ch_), qv,
-                    bd, 1, rdoq_lam_qv=rlq)
+                    bd, 0, rdoq_lam_qv=rlq)
                 cfl = (qc2, eo2, rec2, _rdcost_j(
                     dist2, lamqv, rate2 + (4 << md_mod.RATE_Q)), alpha)
             res[plane] = ((qcp, eop, recp, cost_m), cfl)

@@ -8,7 +8,13 @@ flush) and its PictureDecision mini-GOP assembly
 ``hierarchical_levels`` > 0 they are re-ordered into a hierarchical-B
 pyramid (anchor coded first, not shown; middles reference past and future
 anchors; display via show_existing_frame), otherwise a low-delay KEY + P
-chain. CQP qp-scaling sets each frame's quantizer by temporal layer.
+chain. CQP qp-scaling sets each frame's quantizer by temporal layer; VBR
+rate control (``pipeline/rc.py``) sets it from the coded bits and a
+lookahead window instead. The encoder also runs the stream-level tools:
+source denoising, the lookahead queue, TPL adaptive quantization over each
+mini-GOP, film grain (its parameters in the headers, the noise added to
+the display output only) and checkpoints (``save_state`` /
+``load_state``).
 
 Host entropy runs on one ordered worker thread while the next frames
 compute on the device: jobs run in submission order, so the CDF-carry
@@ -17,10 +23,11 @@ chain, and the bytes, equal a serial run's.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import io
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, List
+from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -29,12 +36,15 @@ from svt_av1_tpu_torch.bitstream import obu
 from svt_av1_tpu_torch.bitstream.ivf import (patch_ivf_frame_count,
                                              write_ivf_frame,
                                              write_ivf_header)
-from svt_av1_tpu_torch.config import EncoderConfig
+from svt_av1_tpu_torch.config import EncoderConfig, RateControlMode
 from svt_av1_tpu_torch.entropy.inter_modes import (ALTREF2_FRAME,
                                                    GOLDEN_FRAME, LAST2_FRAME)
-from svt_av1_tpu_torch.pipeline import tmvp
+from svt_av1_tpu_torch.ops import grain as grain_ops
+from svt_av1_tpu_torch.pipeline import analysis, tmvp
+from svt_av1_tpu_torch.pipeline.common import pad_to_multiple
 from svt_av1_tpu_torch.pipeline.inter import InterFrameEncoder
-from svt_av1_tpu_torch.pipeline.scd import SceneChangeDetector
+from svt_av1_tpu_torch.pipeline.rc import RateControl
+from svt_av1_tpu_torch.pipeline.scd import SceneChangeDetector, luma_stats
 from svt_av1_tpu_torch.pipeline.wavefront import WavefrontIntraEncoder
 from svt_av1_tpu_torch.utils.trace import span
 
@@ -63,10 +73,15 @@ class Encoder:
     QPS_KEY_RATIO = 0.25
     QPS_LAYER_RATIO = (0.40, 0.7, 0.85, 1.0, 1.0, 1.0)
 
-    # how many frames of host entropy may trail the compute front (CQP
+    # how many frames of host entropy may trail the compute front. CQP
     # qindex choices do not depend on coded bits, so the bound is memory:
-    # each in-flight frame holds its coefficient copies)
+    # each in-flight frame holds its coefficient copies. Under rate
+    # control every frame's bits reach the controller before the next
+    # frame's qindex is chosen (depth 0), as in the JAX package's host
+    # backend, whose streams are the reference: the feedback is applied
+    # in submission order and never depends on the worker's speed.
     SYNTAX_DEPTH = 4
+    SYNTAX_DEPTH_RC = 0
 
     def __init__(self, cfg: EncoderConfig):
         assert cfg.hierarchical_levels <= 5, \
@@ -79,7 +94,10 @@ class Encoder:
                                       enable_restoration=cfg.enable_restoration,
                                       enable_intra_edge_filter=(
                                           cfg.enable_intra_edge_filter),
-                                      film_grain_params_present=False,
+                                      film_grain_params_present=(
+                                          cfg.film_grain_strength > 0
+                                          or cfg.film_grain_params
+                                          is not None),
                                       color_primaries=cfg.color_primaries,
                                       transfer_characteristics=(
                                           cfg.transfer_characteristics),
@@ -88,6 +106,9 @@ class Encoder:
                                       color_range=cfg.color_range,
                                       **obu.order_hint_fields(
                                           cfg.enable_tmvp))
+        # film grain synthesis parameters (display output only)
+        self._grain = grain_ops.resolved_params(cfg) \
+            if self.seq.film_grain_params_present else None
         self._slots = [None] * 8   # padded recon per slot (host or device)
         # the slots' prepared references (padding + HME pyramid), shared
         # by every inter frame of the stream
@@ -102,7 +123,7 @@ class Encoder:
         # slot_info store
         self._slot_info = [None] * 8
         self._syntax_pool = None
-        self._syntax_pending: List = []
+        self._syntax_pending: List = []  # [(future, is_key, layer)]
         self._base_slot = 0        # slot of the most recent past anchor
         self._golden_slot = 7      # slot of the last keyframe (GOLDEN)
         self._ld_last2 = None      # low-delay: slot of the frame before LAST
@@ -112,11 +133,31 @@ class Encoder:
         self._out: List = []       # [(bytes or future, recon or None)]
         self._scd = SceneChangeDetector() \
             if cfg.scene_change_detection else None
+        # lookahead queue [(y, u, v, complexity, histogram)], the last
+        # queued decimated luma, and the head frame's complexity weight
+        self._la: List[tuple] = []
+        self._la_prev = None
+        self._la_weight = 1.0
+        self._prev_luma = None       # previous coded source luma (AQ hint)
+        self._tpl_prev_luma = None   # the luma the next mini-GOP refs
+        self._tpl_maps = {}          # display index -> TPL offset map
+        self._rc = None
+        if cfg.rate_control_mode == RateControlMode.VBR \
+                and cfg.target_bit_rate > 0:
+            self._rc = RateControl(cfg.target_bit_rate,
+                                   cfg.frame_rate_num / cfg.frame_rate_den,
+                                   cfg.intra_period,
+                                   start_qindex=cfg.base_q_idx,
+                                   hierarchical_levels=cfg.hierarchical_levels)
 
     # --- internals -----------------------------------------------------------
     def _cfg_for(self, is_key: bool, layer: int = 0) -> EncoderConfig:
         cfg = self.cfg
-        if cfg.enable_qp_scaling and cfg.qindex_override is None:
+        if self._rc is not None:
+            cfg = dataclasses.replace(
+                cfg, qindex_override=self._rc.frame_qindex(
+                    is_key, self._la_weight, layer))
+        elif cfg.enable_qp_scaling and cfg.qindex_override is None:
             from svt_av1_tpu_torch.ops.quant import qindex_for_qstep_scale
             ratio = self.QPS_KEY_RATIO if is_key else \
                 self.QPS_LAYER_RATIO[min(layer,
@@ -137,10 +178,10 @@ class Encoder:
     def _qp_file_qp(self, disp_idx):
         """qp-file override for display frame ``disp_idx`` or None
         (reference --use-q-file semantics: value replaces the frame qp,
-        -1/absent keeps it)."""
+        -1/absent keeps it; ignored under rate control)."""
         qf = self.cfg.qp_file
-        if (qf is None or disp_idx is None or disp_idx >= len(qf)
-                or qf[disp_idx] < 0):
+        if (qf is None or disp_idx is None or self._rc is not None
+                or disp_idx >= len(qf) or qf[disp_idx] < 0):
             return None
         return int(qf[disp_idx])
 
@@ -150,22 +191,41 @@ class Encoder:
                 padded[1][:(cfg.height + 1) // 2, :(cfg.width + 1) // 2],
                 padded[2][:(cfg.height + 1) // 2, :(cfg.width + 1) // 2]]
 
-    def _submit(self, job):
+    def _aq_prev(self, y):
+        """Previous coded source luma, padded like this frame (the
+        variance AQ's temporal hint); updates the tracker."""
+        prev = self._prev_luma
+        self._prev_luma = pad_to_multiple(y, 64)
+        return prev
+
+    def _submit(self, job, is_key: bool, layer: int = 0):
         """Queue a syntax job on the ordered entropy worker; keep at most
-        SYNTAX_DEPTH jobs in flight."""
+        SYNTAX_DEPTH (under rate control SYNTAX_DEPTH_RC) jobs in
+        flight."""
         if self._syntax_pool is None:
             self._syntax_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="entropy")
         fut = self._syntax_pool.submit(job)
-        self._syntax_pending.append(fut)
-        while len(self._syntax_pending) > self.SYNTAX_DEPTH:
-            self._syntax_pending.pop(0).result()
+        self._syntax_pending.append((fut, is_key, layer))
+        depth = self.SYNTAX_DEPTH if self._rc is None \
+            else self.SYNTAX_DEPTH_RC
+        while len(self._syntax_pending) > depth:
+            self._reap_one()
         return fut
+
+    def _reap_one(self) -> None:
+        """Join the oldest in-flight entropy job and feed its bits to the
+        rate controller (join order is submission order, so the updates
+        run in coding order)."""
+        fut, is_key, layer = self._syntax_pending.pop(0)
+        tu = fut.result()
+        if self._rc is not None:
+            self._rc.update(len(tu) * 8, is_key, layer)
 
     def _join_syntax(self) -> None:
         """Wait for all in-flight entropy jobs (in submission order)."""
         while self._syntax_pending:
-            self._syntax_pending.pop(0).result()
+            self._reap_one()
 
     def _encode_key(self, y, u, v, disp_idx: int) -> None:
         self._join_syntax()
@@ -174,6 +234,7 @@ class Encoder:
         if qv is not None:
             cfg = dataclasses.replace(cfg, qp=qv, qindex_override=None)
         enc = WavefrontIntraEncoder(cfg)
+        enc.aq_prev_luma = self._aq_prev(y)
         self._key_disp = disp_idx
         hint = 0
         enc.order_hint = hint
@@ -187,6 +248,8 @@ class Encoder:
         self._base_slot = 0
         self._golden_slot = 7
         self._ld_last2 = None
+        if self.cfg.adaptive_quantization == 2:
+            self._tpl_prev_luma = y   # the anchor the next mini-GOP refs
 
         # keyframe host entropy runs on the ordered syntax worker while
         # the next frames compute. The slot entropy stores are written
@@ -198,7 +261,7 @@ class Encoder:
                 self._slot_entropy[i] = enc.final_entropy
             return tu
 
-        self._out.append((self._submit(key_syntax_job), recon))
+        self._out.append((self._submit(key_syntax_job, True), recon))
 
     def _encode_inter(self, y, u, v, last_slot, alt_slot, refresh_slot,
                       show, layer: int = 0, extra_slots=None,
@@ -206,13 +269,14 @@ class Encoder:
         """Encode one inter frame; returns its padded recon (on the
         device). refresh_slot None = non-reference frame
         (refresh_frame_flags 0, the leaf-B case of the hierarchical
-        pyramid). layer: temporal layer (pyramid level; 0 = anchor/P),
-        which sets the qp-scaling step (or, with qp scaling off, a fixed
-        +12 qindex per layer). extra_slots: {ref_id: slot} additional
+        pyramid). layer: temporal layer (pyramid level; 0 = anchor/P):
+        under rate control the controller's per-layer budget, else the
+        qp-scaling step (or, with qp scaling off, a fixed +12 qindex per
+        layer). extra_slots: {ref_id: slot} additional
         named references; a slot whose content is the same object as an
         already-chosen ref is dropped."""
         cfg = self._cfg_for(False, layer)
-        if layer and not self.cfg.enable_qp_scaling:
+        if layer and self._rc is None and not self.cfg.enable_qp_scaling:
             cfg = dataclasses.replace(
                 cfg, qindex_override=int(np.clip(
                     cfg.base_q_idx + 12 * layer, 1, 255)))
@@ -220,6 +284,8 @@ class Encoder:
         if qv is not None:   # qp-file pins the frame qp exactly
             cfg = dataclasses.replace(cfg, qp=qv, qindex_override=None)
         enc = InterFrameEncoder(cfg, self.seq, self._ref_cache)
+        enc.aq_prev_luma = self._aq_prev(y)
+        enc.tpl_qmap = self._tpl_maps.get(disp_idx)
         idx = [last_slot] * 7
         alt = None
         used = [self._slots[last_slot]]
@@ -299,7 +365,7 @@ class Encoder:
                 self._slot_entropy[refresh] = enc.final_entropy
             return tu
 
-        self._out.append((self._submit(syntax_job),
+        self._out.append((self._submit(syntax_job, False, layer),
                           self._crop(padded) if show else None))
         return padded
 
@@ -314,6 +380,18 @@ class Encoder:
         if not group:
             return
         g = len(group)
+        self._tpl_maps = {}
+        if self.cfg.adaptive_quantization == 2:
+            # MV-propagated TPL over the mini-GOP window (display order):
+            # areas that later frames predict from get finer quantization
+            # (InitialRateControl TPL, EbInitialRateControlProcess.c:954)
+            with span("tpl"):
+                maps = analysis.tpl_group_qmaps(
+                    [e[1] for e in group], self.cfg.base_q_idx,
+                    InterFrameEncoder.DELTA_Q_RES, self.seq.sb_rows,
+                    self.seq.sb_cols, prev_luma=self._tpl_prev_luma)
+            self._tpl_maps = {e[0]: m for e, m in zip(group, maps)}
+            self._tpl_prev_luma = group[-1][1]
         base = self._base_slot
         anchor_slot = 1 if base != 1 else 2
         golden = self._golden_slot
@@ -403,19 +481,168 @@ class Encoder:
             self._flush_group()
 
     # --- public ---------------------------------------------------------------
+    def _resolve_auto_grain(self, y) -> None:
+        """film_grain_strength -1: the full noise model estimated from
+        the first frame (an AR fit and per-intensity scaling points),
+        carried in the config so every frame header sends the same
+        parameters."""
+        params = analysis.estimate_grain_params(
+            y, self.cfg.bit_depth, seed=self.cfg.film_grain_seed)
+        use = params.apply_grain
+        self.cfg = dataclasses.replace(
+            self.cfg, film_grain_strength=0,
+            film_grain_params=params if use else None)
+        self.seq.film_grain_params_present = use
+        self._grain = params if use else None
+
     def send_picture(self, y: np.ndarray, u: np.ndarray,
                      v: np.ndarray) -> None:
-        """Accept one frame (display order)."""
+        """Accept one frame (display order). Denoising, when on, comes
+        first; under rate control with lookahead a frame is encoded once
+        its complexity window has filled (the InitialRateControl
+        lookahead)."""
+        if self.cfg.film_grain_strength == -1:
+            self._resolve_auto_grain(y)
+        if self.cfg.enable_source_denoise:
+            with span("denoise"):
+                nc = analysis.classify_picture_noise(y)
+                y, u, v = analysis.denoise_source(y, u, v, nc, self.cfg.qp)
+        lad = self.cfg.look_ahead_distance
+        if lad > 0 and self._rc is not None:
+            # the decimated-luma histogram rides the lookahead so the
+            # drain can spot in-window scene cuts
+            d, hist = luma_stats(y)
+            c = 1.0
+            if self._la_prev is not None and self._la_prev.shape == d.shape:
+                c = float(np.mean(np.abs(
+                    d.astype(np.int32) - self._la_prev.astype(np.int32))))
+                # a frame never costs more than its open-loop intra
+                # estimate (OIS feeding InitialRateControl,
+                # EbMotionEstimation.c:7419); both per-pixel SAD scale
+                ois = analysis.ois_intra_cost(d)
+                if ois.size:
+                    c = min(c, float(ois.mean()) / 256.0)
+            self._la_prev = d
+            self._la.append((y, u, v, max(c, 1e-3), hist))
+            if len(self._la) > lad:
+                self._drain_lookahead()
+            return
         self._encode_one(y, u, v)
+
+    def _drain_lookahead(self, all_frames: bool = False) -> None:
+        """Encode queued frames, each with its complexity window (cut at
+        the first in-window scene cut) as the controller's lookahead."""
+        while self._la and (all_frames or len(self._la) >
+                            self.cfg.look_ahead_distance):
+            y, u, v, c, hist = self._la.pop(0)
+            window = [c] + [e[3] for e in self._la]
+            cut = analysis.histogram_cut_index(
+                [hist] + [e[4] for e in self._la])
+            if cut is not None:
+                window = window[:cut]
+            self._la_weight = c / max(np.mean(window), 1e-3)
+            if self._rc is not None:
+                self._rc.set_lookahead(window)
+            self._encode_one(y, u, v)
+            self._la_weight = 1.0
 
     def flush(self) -> None:
         """End of stream: encode any buffered frames, wait for the
         entropy worker, then stop it."""
+        self._drain_lookahead(all_frames=True)
         self._flush_group()
         self._join_syntax()
         if self._syntax_pool is not None:
             self._syntax_pool.shutdown()
             self._syntax_pool = None
+
+    # --- checkpoints ------------------------------------------------------------
+    def save_state(self) -> dict:
+        """Serializable encoder state between frames: reference slots (as
+        numpy, so a checkpoint resumes on any device), entropy and TMVP
+        slot stores, the GOP buffer, the rate-control, lookahead and
+        scene-detector state. The JAX package's ``save_state`` layout
+        (version 3): ``convert.state_from_jax`` maps its dicts onto this.
+        Packets not yet taken with ``get_packet`` stay queued."""
+        self._join_syntax()
+        self._out = [(tu if isinstance(tu, bytes) else tu.result(), rec)
+                     for tu, rec in self._out]
+        # slots are saved with their aliasing (after a key frame all 8
+        # share one recon): the multi-ref dedup keys on object identity,
+        # so the resumed stream needs the same sharing
+        uniq, alias = _shared(self._slots, lambda sl: [
+            p.cpu().numpy().copy() if isinstance(p, torch.Tensor)
+            else p.copy() for p in sl])
+        euniq, ealias = _shared(self._slot_entropy,
+                                lambda e: (e[0].copy(), e[1].copy()))
+        return {
+            "version": 3,
+            "cfg": dataclasses.asdict(self.cfg),
+            "slots_uniq": uniq,
+            "slots_alias": alias,
+            "entropy_uniq": euniq,
+            "entropy_alias": ealias,
+            "slot_gm": list(self._slot_gm),
+            "slot_info": [
+                None if si is None else {
+                    "order_hint": si.order_hint,
+                    "ref_order_hints": tuple(si.ref_order_hints),
+                    "is_intra": si.is_intra,
+                    "field_ref": None if si.field_ref is None
+                    else si.field_ref.copy(),
+                    "field_mv": None if si.field_mv is None
+                    else si.field_mv.copy(),
+                } for si in self._slot_info],
+            "base_slot": self._base_slot,
+            "golden_slot": self._golden_slot,
+            "ld_last2": self._ld_last2,
+            "frame_idx": self._frame_idx,
+            "key_disp": self._key_disp,
+            "group": copy.deepcopy(self._group),
+            "la": copy.deepcopy(self._la),
+            "la_prev": None if self._la_prev is None
+            else self._la_prev.copy(),
+            # deep copies: the controller updates its per-layer list in
+            # place, which must not reach a checkpoint already taken
+            "rc": None if self._rc is None
+            else copy.deepcopy(self._rc.__dict__),
+            "scd": None if self._scd is None
+            else copy.deepcopy(self._scd.__dict__),
+        }
+
+    @classmethod
+    def load_state(cls, state: dict, device: Optional[str] = None
+                   ) -> "Encoder":
+        """Rebuild an Encoder mid-stream from ``save_state()`` output;
+        ``device`` (default: the saved config's) may differ from the
+        device the checkpoint was taken on."""
+        assert state.get("version") == 3  # display-indexed group entries
+        kw = dict(state["cfg"])
+        if device is not None:
+            kw["device"] = device
+        enc = cls(EncoderConfig(**kw))
+        uniq = [[p.copy() for p in sl] for sl in state["slots_uniq"]]
+        enc._slots = [None if a is None else uniq[a]
+                      for a in state["slots_alias"]]
+        euniq = [(e[0].copy(), e[1].copy()) for e in state["entropy_uniq"]]
+        enc._slot_entropy = [None if a is None else euniq[a]
+                             for a in state["entropy_alias"]]
+        enc._slot_gm = [tuple(map(tuple, g)) for g in state["slot_gm"]]
+        enc._slot_info = [None if d is None else tmvp.SlotInfo(**d)
+                          for d in state["slot_info"]]
+        enc._base_slot = state["base_slot"]
+        enc._golden_slot = state["golden_slot"]
+        enc._ld_last2 = state["ld_last2"]
+        enc._frame_idx = state["frame_idx"]
+        enc._key_disp = state["key_disp"]
+        enc._group = list(state["group"])
+        enc._la = list(state["la"])
+        enc._la_prev = state["la_prev"]
+        if state["rc"] is not None:
+            enc._rc.__dict__.update(copy.deepcopy(state["rc"]))
+        if state["scd"] is not None and enc._scd is not None:
+            enc._scd.__dict__.update(copy.deepcopy(state["scd"]))
+        return enc
 
     def get_packet(self):
         if not self._out:
@@ -426,7 +653,30 @@ class Encoder:
         if recon is not None:
             recon = [p.cpu().numpy() if isinstance(p, torch.Tensor) else p
                      for p in recon]
+            if self._grain is not None:
+                # display-path grain only: reference slots stay grain-free
+                # (spec 7.18.3 applies grain after output;
+                # grainSynthesis.c:1174)
+                with span("grain"):
+                    recon = grain_ops.apply_grain(recon, self._grain,
+                                                  self.cfg.bit_depth)
         return tu, recon
+
+
+def _shared(items, copy_fn):
+    """(copies of the distinct objects among ``items``, per item the index
+    of its copy or None): objects that several items share are stored
+    once, so a loader can restore the sharing."""
+    uniq, alias, seen = [], [], {}
+    for it in items:
+        if it is None:
+            alias.append(None)
+            continue
+        if id(it) not in seen:
+            seen[id(it)] = len(uniq)
+            uniq.append(copy_fn(it))
+        alias.append(seen[id(it)])
+    return uniq, alias
 
 
 def encode_ivf(frames: Iterable[tuple], cfg: EncoderConfig) -> bytes:

@@ -9,7 +9,9 @@ result is read back. Where the config enables them (presets 0 and 1), the
 interpolation-filter search and the inter tx-type sweep run inside that
 step, between the luma decision and chroma, which then takes the blocks'
 filters and inherited tx types: the JAX package's non-fused path, whose
-host stages stay on the device here. The intra-flip pass then re-decides
+host stages stay on the device here. Under adaptive quantization every
+lane carries its superblock's qindex and lambda through the group and
+the flip pass. The intra-flip pass then re-decides
 poorly predicted blocks as intra (a batched decision on the device, then
 an exact recode in dependency waves, ``ops/device_tile.flip_apply_fused``;
 at qindex 0 with RDOQ too, where the trim leaves qindex-0 lanes untouched
@@ -33,6 +35,7 @@ import torch
 from svt_av1_tpu_torch.bitstream import obu
 from svt_av1_tpu_torch.config import EncoderConfig
 from svt_av1_tpu_torch.entropy import coeff as coeff_syntax
+from svt_av1_tpu_torch.entropy import delta as delta_syntax
 from svt_av1_tpu_torch.entropy import inter_modes
 from svt_av1_tpu_torch.entropy import modes as mode_syntax
 from svt_av1_tpu_torch.entropy import mv as mv_syntax
@@ -40,9 +43,11 @@ from svt_av1_tpu_torch.entropy.cdf import FrameContext
 from svt_av1_tpu_torch.entropy.ctx import TileContexts
 from svt_av1_tpu_torch.ops import device as dev_ops
 from svt_av1_tpu_torch.ops import device_inter as di
+from svt_av1_tpu_torch.ops import grain as grain_ops
 from svt_av1_tpu_torch.ops import mc
 from svt_av1_tpu_torch.ops import quant as quant_ops
-from svt_av1_tpu_torch.pipeline import common, md, mvp, postfilter
+from svt_av1_tpu_torch.pipeline import (analysis, common, md, mvp,
+                                        postfilter, rd)
 from svt_av1_tpu_torch.pipeline.intra import make_symbol_writer
 from svt_av1_tpu_torch.pipeline.mvp import (GLOBALMV, LAST_FRAME, NEARESTMV,
                                             NEARMV, NEWMV)
@@ -87,8 +92,11 @@ class InterFrameEncoder:
         self.tile_rects_v = common.tile_rects(
             seq.sb_cols, seq.sb_rows, self.mi_cols, self.mi_rows,
             *self.tile_log2)
-        from svt_av1_tpu_torch.pipeline import rd
         self.lam = rd.rd_lambda(cfg.base_q_idx, cfg.bit_depth)
+        # set by the Encoder: the previous coded source luma (the
+        # variance AQ's temporal hint) and this frame's TPL offset map
+        self.aq_prev_luma = None
+        self.tpl_qmap = None
 
     def _padded_ref(self, planes, valid_hw):
         """Padded reference planes + HME pyramid on the device, cached per
@@ -183,9 +191,8 @@ class InterFrameEncoder:
         self.src_pyr = di.src_pyramid_dev(self.src[0])
 
         if cfg.fixed_partition_size is None:
-            from svt_av1_tpu_torch.pipeline import rd as rd_mod
             with span("inter_partition_dp"):
-                self.leaf_sizes = rd_mod.choose_partition_inter(
+                self.leaf_sizes = rd.choose_partition_inter(
                     cfg, self.mi_cols, self.mi_rows,
                     ref_pyr=self.ref_pyrs[LAST_FRAME], src_pyr=self.src_pyr)
         else:
@@ -214,7 +221,25 @@ class InterFrameEncoder:
         self.comp_ref1 = np.zeros(n, dtype=np.int32)
         self.interp_f = np.zeros(n, dtype=np.int32)
         self.reference_select = bool(self.fwd_refs and self.bwd_refs)
-        self.qmap = None            # adaptive quantization: a later slice
+        self.qmap = None
+        if cfg.adaptive_quantization:
+            tq = self.tpl_qmap
+            if cfg.adaptive_quantization == 2 and tq is not None:
+                # MV-propagated TPL offsets from the GOP lookahead window,
+                # anchored on this frame's own base qindex; an all-zero map
+                # codes no deltas at all
+                if np.any(tq):
+                    self.qmap = np.clip(cfg.base_q_idx + tq,
+                                        1, 255).astype(np.int32)
+            else:
+                classes = analysis.content_classes(
+                    src[0], src[1], src[2], self.seq.sb_rows,
+                    self.seq.sb_cols, cfg.bit_depth)
+                self.qmap = analysis.variance_qmap(
+                    src[0], self.seq.sb_rows, self.seq.sb_cols,
+                    cfg.base_q_idx, self.DELTA_Q_RES,
+                    prev_y=self.aq_prev_luma,
+                    classes=classes)
 
         leaves = [(r, c, common.leaf_wh(v)) for r, c, v in leaves]
         larr = np.array([(r, c, wh[0], wh[1]) for r, c, wh in leaves],
@@ -222,12 +247,15 @@ class InterFrameEncoder:
         shape_key = larr[:, 2] * 1000 + larr[:, 3]
         # one shape-group step per block shape (ME + RD + compound, the
         # searches the config enables, both chroma planes), every group
-        # issued before any result is read back
+        # issued before any result is read back; under adaptive
+        # quantization each lane carries its SB's qindex
         batches = []
         for sk in np.unique(shape_key):
             sids = np.nonzero(shape_key == sk)[0]
+            qvec = None if self.qmap is None else \
+                self.qmap[larr[sids, 0] // 16, larr[sids, 1] // 16]
             batches.append((larr[sids], sids,
-                            (int(sk) // 1000, int(sk) % 1000)))
+                            (int(sk) // 1000, int(sk) % 1000), qvec))
         with span("inter_blocks"):
             self._encode_blocks(batches)
         if cfg.intra_in_inter:
@@ -306,7 +334,9 @@ class InterFrameEncoder:
                              interp_filter_switchable=(
                                  cfg.enable_interp_filter_search),
                              delta_q_res=self.DELTA_Q_RES,
-                             film_grain=None,
+                             film_grain=(grain_ops.resolved_params(cfg)
+                                         if self.seq.film_grain_params_present
+                                         else None),
                              base_q_idx=cfg.base_q_idx,
                              disable_cdf_update=cfg.disable_cdf_update,
                              loop_filter_levels=self._lf_levels,
@@ -335,7 +365,6 @@ class InterFrameEncoder:
         if not hasattr(self, "_qp_cache"):
             self._qp_cache = {}
         if qidx not in self._qp_cache:
-            from svt_av1_tpu_torch.pipeline import rd
             self._qp_cache[qidx] = (
                 quant_ops.make_quant_params(qidx,
                                             bit_depth=self.cfg.bit_depth),
@@ -362,7 +391,7 @@ class InterFrameEncoder:
         outputs come back here, the coefficient tensors on the entropy
         thread (PendingQC, whose copies start now).
 
-        batches: [(blocks larr, ids, (bw, bh))]."""
+        batches: [(blocks larr, ids, (bw, bh), per-lane qindex or None)]."""
         cfg = self.cfg
         refs_order = sorted(self.refs)
         pos = {r: i for i, r in enumerate(refs_order)}
@@ -372,7 +401,9 @@ class InterFrameEncoder:
             if self.reference_select else ()
         issued = []
         with span("fused_issue", groups=len(batches)):
-            for blocks, ids, wh in batches:
+            for blocks, ids, wh, qvec in batches:
+                lamv = None if qvec is None else \
+                    rd.lane_lambdas(qvec, cfg.bit_depth)
                 _, outs, _ = di.shape_group_issue(
                     self.recon, [self.ref_pyrs[r] for r in refs_order],
                     [self.refs[r][1] for r in refs_order],
@@ -380,7 +411,7 @@ class InterFrameEncoder:
                     self.src_pyr, self.src[1], self.src[2],
                     blocks[:, 1] * 4, blocks[:, 0] * 4, wh, self.qp,
                     self.lam, fwd_pos, bwd_pos, bd=cfg.bit_depth,
-                    rdoq=cfg.enable_rdoq,
+                    rdoq=cfg.enable_rdoq, qv=qvec, lamv=lamv,
                     filter_search=cfg.enable_interp_filter_search,
                     tx_search=cfg.enable_tx_type_search)
                 issued.append((outs, ids))
@@ -540,7 +571,8 @@ class InterFrameEncoder:
         blocks, one device issue per block shape (sources, edges from the
         device recon and the candidate predictions all form there), read
         back after every group is issued: returns [(r, c, size, li,
-        best_mode)] for accepted flips, in coding order."""
+        best_mode)] for accepted flips, in coding order. Under adaptive
+        quantization each lane is priced at its SB's qindex and lambda."""
         from svt_av1_tpu_torch.pipeline import avail
         cfg = self.cfg
         cand_modes = tuple(cfg.intra_modes) or (0,)
@@ -550,7 +582,6 @@ class InterFrameEncoder:
             # V/H at delta 0) so signaled streams stay decoder-exact
             cand_modes = tuple(m for m in cand_modes
                                if m in (0, 1, 2, 9, 10, 11, 12)) or (0,)
-        lamq = md.lam_to_q(self.lam)
         groups = {}
         for k, (r, c, size, li) in enumerate(cand):
             groups.setdefault(common.leaf_wh(size), []).append(k)
@@ -574,12 +605,18 @@ class InterFrameEncoder:
             # decision must price exactly the edges the recode uses)
             mxw = (cs - lc_ + tcs) * 4
             mxh = (rs - lr_ + trs) * 4
+            qv = lams = None
+            lamq = md.lam_to_q(self.lam)
+            if self.qmap is not None:
+                qv = self.qmap[rs // 16, cs // 16]
+                lams = rd.lane_lambdas(qv, cfg.bit_depth)
+                lamq = np.array([md.lam_to_q(lv) for lv in lams], np.int64)
             outs, _ = di.flip_decision_issue(
                 self.src[0], self.recon[0], xs, ys, ha, hl, htr, hbl,
                 cand_modes, (bw, bh), self.qp, self.lam, mxw, mxh,
-                bd=cfg.bit_depth, rdoq=cfg.enable_rdoq)
-            pending.append((outs, len(ks), ks))
-        for outs, b, ks in pending:
+                bd=cfg.bit_depth, rdoq=cfg.enable_rdoq, qv=qv, lamv=lams)
+            pending.append((outs, len(ks), ks, lamq))
+        for outs, b, ks, lamq in pending:
             vals = [o.cpu().numpy().astype(np.int64) for o in outs]
             best_cost = np.full(b, np.iinfo(np.int64).max)
             best_mode = np.zeros(b, dtype=np.int64)
@@ -643,12 +680,27 @@ class InterFrameEncoder:
         self.cur_qindex = cfg.base_q_idx
         for sb_y in range(0, sb_rs * 16, 16):
             for sb_x in range(0, sb_cs * 16, 16):
+                self._read_deltas = self.qmap is not None
                 lr_syntax.write_sb_units(self.w, self.fc, self.lr_rinfos,
                                          self.lr_ref, sb_y + mi_r0,
                                          sb_x + mi_c0,
                                          cfg.width, cfg.height)
                 self._emit_partition(sb_y, sb_x, 64)
         return self.w.done()
+
+    def _write_delta_q(self, mi_row, mi_col, size, skip) -> None:
+        """Per-SB delta qindex (spec 5.11.5; QPM write side) at the SB's
+        first block; a full-SB skip block codes nothing."""
+        if self.qmap is None or not self._read_deltas:
+            return
+        self._read_deltas = False
+        if size == 64 and skip:
+            return
+        self.cur_qindex = delta_syntax.write_delta_to(
+            self.w, self.fc, self.cur_qindex,
+            int(self.qmap[(mi_row + self.tile_mi_off[0]) // 16,
+                          (mi_col + self.tile_mi_off[1]) // 16]),
+            self.DELTA_Q_RES)
 
     def _emit_partition(self, mi_row, mi_col, psize) -> None:
         if mi_row >= self.mi_rows or mi_col >= self.mi_cols:
@@ -731,6 +783,7 @@ class InterFrameEncoder:
         postfilter.write_cdef_idx(self.w, self.cdef_idx_map,
                                   self._cdef_written, mi_row, mi_col,
                                   self.tile_mi_off, skip)
+        self._write_delta_q(mi_row, mi_col, size if bw == bh else 0, skip)
         if not self.block_is_inter[li]:
             self._emit_intra_block(mi_row, mi_col, size, li, skip)
             return

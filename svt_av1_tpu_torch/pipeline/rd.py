@@ -22,7 +22,7 @@ import numpy as np
 from svt_av1_tpu_torch.config import EncoderConfig
 from svt_av1_tpu_torch.ops import intra as intra_ops
 from svt_av1_tpu_torch.ops import quant as quant_ops
-from svt_av1_tpu_torch.ops.device_md import decide_cost_issue
+from svt_av1_tpu_torch.ops.device_md import decide_cost_issue, satd_modes
 from svt_av1_tpu_torch.pipeline import avail, common, md
 
 
@@ -36,6 +36,12 @@ def rd_lambda(qindex: int, bit_depth: int = 8) -> float:
     return 0.1 * scale * q * q
 
 
+def lane_lambdas(qv, bit_depth: int = 8) -> np.ndarray:
+    """Per-lane RD lambdas of per-lane qindexes (adaptive quantization)."""
+    lam = {int(q): rd_lambda(int(q), bit_depth) for q in np.unique(qv)}
+    return np.array([lam[int(q)] for q in qv])
+
+
 def _block_grid(w_eff: int, h_eff: int, size: int):
     """Top-left coords of all size-aligned blocks with origin inside the
     mi area."""
@@ -45,13 +51,11 @@ def _block_grid(w_eff: int, h_eff: int, size: int):
     return gx.reshape(-1), gy.reshape(-1)
 
 
-def _analyze_depth_issue(src, xs, ys, size, cands, qp, max_w: int,
-                         max_h: int, mi_cols: int, mi_rows: int,
-                         lam: float, bd: int = 8, device="cuda"):
-    """Open-loop analysis of all blocks at one depth: host edge prep and
-    one decide-cost issue on ``device`` (device_md.decide_cost_issue).
-    Returns a handle; resolve it with _analyze_depth_fetch AFTER issuing
-    every depth. ``size``: int (square) or (w, h) rect."""
+def _depth_inputs(src, xs, ys, size, max_w: int, max_h: int,
+                  mi_cols: int, mi_rows: int, bd: int = 8):
+    """Host inputs of one depth's open-loop analysis: the blocks' source
+    pixels [B, h, w], their source-pixel prediction edges (offset-1
+    above / left arrays) and above / left availability."""
     bw, bh = common.leaf_wh(size)
     ha, hl = ys > 0, xs > 0
     xs = np.asarray(xs)
@@ -65,9 +69,20 @@ def _analyze_depth_issue(src, xs, ys, size, cands, qp, max_w: int,
         max_w=max_w, max_h=max_h)
     iy = ys[:, None, None] + np.arange(bh)[None, :, None]
     ix = xs[:, None, None] + np.arange(bw)[None, None, :]
-    srcs = src[iy, ix].astype(np.int64)
-    cost = decide_cost_issue(0, srcs, above1, left1, ha, hl, cands, qp,
-                             size, lam, bd=bd, device=device)
+    return src[iy, ix].astype(np.int64), above1, left1, ha, hl
+
+
+def _analyze_depth_issue(src, xs, ys, size, cands, qp, max_w: int,
+                         max_h: int, mi_cols: int, mi_rows: int,
+                         lam: float, bd: int = 8, device="cuda"):
+    """Open-loop analysis of all blocks at one depth: host edge prep and
+    one decide-cost issue on ``device`` (device_md.decide_cost_issue).
+    Returns a handle; resolve it with _analyze_depth_fetch AFTER issuing
+    every depth. ``size``: int (square) or (w, h) rect."""
+    ins = _depth_inputs(src, xs, ys, size, max_w, max_h, mi_cols, mi_rows,
+                        bd)
+    cost = decide_cost_issue(0, *ins, cands, qp, size, lam, bd=bd,
+                             device=device)
     return cost, lam
 
 
@@ -80,6 +95,45 @@ def _analyze_depth_fetch(handle):
     cost, lam = handle
     return cost.cpu().numpy().astype(np.float64) \
         + lam * float(16 << md.RATE_Q)
+
+
+def _dp_intra_overhead() -> float:
+    """Per-leaf fixed syntax overhead (bits) of the SATD intra DP model;
+    SVT_TPU_DP_INTRA_OVERHEAD (env) overrides it for calibration sweeps,
+    as in the JAX package."""
+    return float(os.environ.get("SVT_TPU_DP_INTRA_OVERHEAD", "24.0"))
+
+
+def _analyze_depth_satd_issue(src, xs, ys, size, modes, max_w: int,
+                              max_h: int, mi_cols: int, mi_rows: int,
+                              lam: float, qstep: float, bd: int = 8,
+                              device="cuda"):
+    """SATD-scored open-loop depth (the reference's OIS model): host edge
+    prep and one issue of the min-over-modes Hadamard SATD on ``device``
+    (device_md.satd_modes). Returns a handle for
+    _analyze_depth_satd_fetch."""
+    ins = _depth_inputs(src, xs, ys, size, max_w, max_h, mi_cols, mi_rows,
+                        bd)
+    return (satd_modes(*ins, modes, size, bd, device=device), size, lam,
+            qstep)
+
+
+def _analyze_depth_satd_fetch(handle):
+    """Depth cost [B] from an issued SATD (plain-bit rate scale, the same
+    quantization-aware model family as choose_partition_inter's
+    rd_model), in NumPy float64 like the JAX package: SSE estimated from
+    the Hadamard L1 (transform gain sqrt(Ntx) per axis), a distortion
+    floor and an R(D) curve."""
+    satd, size, lam, qstep = handle
+    satd = satd.cpu().numpy()
+    bw, bh = common.leaf_wh(size)
+    n = float(bw * bh)
+    ntx = float(min(bw, 32) * min(bh, 32))
+    sse = 1.5 * (satd.astype(np.float64) ** 2) / (ntx * n)
+    nq = n * qstep * qstep
+    dist = np.minimum(sse, sse * 0.05 + 0.125 * nq)
+    rate = _dp_intra_overhead() + 0.6 * n * np.log2(1.0 + sse / nq)
+    return dist + lam * rate
 
 
 def _leaves_from_choices(choice: dict, min_size: int, mi_rows: int,
@@ -166,14 +220,27 @@ def choose_partition(y_plane: np.ndarray, cfg: EncoderConfig,
              if c[1] == 0 and c[0] in (0, 1, 2, 3, 7, 9, 12)]
     if not cands:
         cands = common.intra_candidates(cfg)
-    bitq = 512.0
+    # SATD scoring (reference OIS model): swaps the per-depth full-T/Q
+    # loop for Hadamard-residual costs in the plain-bit rate scale — the
+    # DP only needs relative costs
+    satd_mode = cfg.intra_dp_satd
+    qstep = quant_ops.ac_quant(cfg.base_q_idx, 0, cfg.bit_depth) / 8.0
+    satd_cands = tuple(m for m, _ in cands)
+    bitq = 1.0 if satd_mode else 512.0
     # issue EVERY depth/arm before fetching any result
-    pending = []   # (handle, store-callback)
+    pending = []   # (handle, fetch, store-callback)
 
     def depth_cost(xs, ys, wh, store):
-        pending.append((_analyze_depth_issue(
-            src, xs, ys, wh, cands, qp, w_eff, h_eff, mi_cols, mi_rows,
-            lam, cfg.bit_depth, device=cfg.device), store))
+        if satd_mode:
+            pending.append((_analyze_depth_satd_issue(
+                src, xs, ys, wh, satd_cands, w_eff, h_eff, mi_cols,
+                mi_rows, lam, qstep, cfg.bit_depth, device=cfg.device),
+                _analyze_depth_satd_fetch, store))
+        else:
+            pending.append((_analyze_depth_issue(
+                src, xs, ys, wh, cands, qp, w_eff, h_eff, mi_cols,
+                mi_rows, lam, cfg.bit_depth, device=cfg.device),
+                _analyze_depth_fetch, store))
 
     sizes = [s for s in (64, 32, 16, 8)
              if cfg.min_partition_size <= s <= cfg.max_partition_size]
@@ -237,8 +304,8 @@ def choose_partition(y_plane: np.ndarray, cfg: EncoderConfig,
                     depth_cost(xs[sel], ys[sel], wh, st_arm)
                 else:
                     st_arm(np.zeros(0))
-    for h, store in pending:
-        store(_analyze_depth_fetch(h))
+    for h, fetch, store in pending:
+        store(fetch(h))
 
     # bottom-up DP. "crosses" must mirror the emit/_leaves rule exactly:
     # a block is forced to split when its HALF-point falls outside the mi
@@ -246,7 +313,7 @@ def choose_partition(y_plane: np.ndarray, cfg: EncoderConfig,
     min_size = sizes[-1]
     best = cost[min_size].copy()
     choice = {}
-    split_bits = bitq  # partition symbol proxy (1 bit, q9)
+    split_bits = bitq  # partition symbol proxy (1 bit; q9 or plain)
     for size in reversed(sizes[:-1]):
         rows, cols = cost[size].shape
         ch_rows, ch_cols = best.shape

@@ -12,8 +12,10 @@ the JAX package's device backend takes them: with several tiles every
 tile defers into one frame-batched program and the recon stays on the
 device through deblocking into the reference slots; a single tile runs
 its own program. Key frames whose candidates engage the intra edge filter
-(``common.edge_filter_active``), and tiles with leaves below 8 px, take
-the per-wave loop (``_wave_loop``): per wave and leaf shape the prediction
+(``common.edge_filter_active``), key frames under variance AQ (each lane
+then carries its superblock's qindex and lambda into the decide core),
+and tiles with leaves below 8 px, take the per-wave loop
+(``_wave_loop``): per wave and leaf shape the prediction
 edges, each lane's filt_type (from the tile's neighbour-smoothness maps)
 and its real above / left sample counts are prepared on the host from the
 numpy recon, each plane's wave goes to the device and its decisions and
@@ -28,6 +30,7 @@ import torch
 from svt_av1_tpu_torch.bitstream import obu
 from svt_av1_tpu_torch.config import EncoderConfig
 from svt_av1_tpu_torch.entropy import coeff as coeff_syntax
+from svt_av1_tpu_torch.entropy import delta as delta_syntax
 from svt_av1_tpu_torch.entropy import lr as lr_syntax
 from svt_av1_tpu_torch.entropy import modes as mode_syntax
 from svt_av1_tpu_torch.entropy.cdf import FrameContext
@@ -35,10 +38,12 @@ from svt_av1_tpu_torch.entropy.ctx import TileContexts
 from svt_av1_tpu_torch.ops import intra as intra_ops
 from svt_av1_tpu_torch.ops import intra_dir
 from svt_av1_tpu_torch.ops import device_tile
+from svt_av1_tpu_torch.ops import grain as grain_ops
 from svt_av1_tpu_torch.ops import quant as quant_ops
 from svt_av1_tpu_torch.ops.device import dlf_search_apply_dev
 from svt_av1_tpu_torch.ops.device_md import decide_block_batch_dev
-from svt_av1_tpu_torch.pipeline import avail, common, postfilter, rd
+from svt_av1_tpu_torch.pipeline import (analysis, avail, common,
+                                        postfilter, rd)
 from svt_av1_tpu_torch.pipeline.intra import make_symbol_writer
 from svt_av1_tpu_torch.utils.blocks import PARTITION_SPLIT
 from svt_av1_tpu_torch.utils.trace import span
@@ -55,7 +60,10 @@ class WavefrontIntraEncoder:
                                       enable_restoration=cfg.enable_restoration,
                                       enable_intra_edge_filter=(
                                           cfg.enable_intra_edge_filter),
-                                      film_grain_params_present=False,
+                                      film_grain_params_present=(
+                                          cfg.film_grain_strength > 0
+                                          or cfg.film_grain_params
+                                          is not None),
                                       color_primaries=cfg.color_primaries,
                                       transfer_characteristics=(
                                           cfg.transfer_characteristics),
@@ -75,13 +83,18 @@ class WavefrontIntraEncoder:
         # operands, which only the per-wave loop carries
         self._edge = common.edge_filter_active(cfg)
         self._fused = not self._edge
+        self.qmap = self.qmap_t = None
+        self._classes = None
+        # the previous coded source luma (set by the Encoder): the
+        # variance AQ's temporal-stability hint
+        self.aq_prev_luma = None
         self._tile_count = 1
         self._defer_tiles = None
         self._defer_waves = None
 
     # --- batched wave compute on the torch device ------------------------------
     def _wave_compute(self, plane: int, parts, size, cands, forced=None,
-                      cfl_luma=None, ftype=None):
+                      cfl_luma=None, ftype=None, qv=None, lamv=None):
         """Blocks of one wave, one leaf shape, from one or more tiles:
         mode decision + T/Q/IQ/recon in one device call. parts: per tile
         (tile, xs [b], ys [b], htr [b], hbl [b]), plane pixel positions
@@ -91,7 +104,9 @@ class WavefrontIntraEncoder:
         reuses the uv choice made on U — one shared chroma mode).
         ``cfl_luma``: co-located luma recon [B, 2s, 2s] (chroma planes,
         CfL-eligible). ``ftype``: [B] filt_type of the intra edge filter
-        (None: off). B is the parts' lanes in order. Returns (modes,
+        (None: off). ``qv``/``lamv``: [B] per-lane qindex and lambda
+        under adaptive quantization (None: the frame's). B is the parts'
+        lanes in order. Returns (modes,
         deltas, qcoeff [B,ch,cw], eob, alphas, tx types), all [B]."""
         cfg = self.cfg
         bw, bh = common.leaf_wh(size)
@@ -118,7 +133,8 @@ class WavefrontIntraEncoder:
                 forced=forced, cfl_luma=cfl_luma,
                 tx_search=(plane == 0 and cfg.enable_tx_type_search
                            and cfg.base_q_idx > 0),
-                rdoq=cfg.enable_rdoq, edge=edge, device=cfg.device)
+                rdoq=cfg.enable_rdoq, qv=qv, lamv=lamv, edge=edge,
+                device=cfg.device)
         i = 0
         for tile, xs, ys, _, _ in parts:
             recon = tile["recon"][plane]
@@ -126,6 +142,36 @@ class WavefrontIntraEncoder:
                 recon[y:y + bh, x:x + bw] = recon_blocks[i]
                 i += 1
         return best, deltas, qcoeff, eob, alphas, tts
+
+    # --- adaptive quantization (QPM) ------------------------------------------
+    DELTA_Q_RES = 2  # coded deltas step 1 << 2 = 4 qindex units
+
+    def _variance_qmap(self, y_padded) -> np.ndarray:
+        """Per-SB qindex from local variance (the reference's
+        SourceBasedOperations/QPM: flat areas get finer quantization,
+        busy areas coarser; Av1QpModulationLcu EbCodingLoop.c:2222), with
+        the previous source luma (``aq_prev_luma``, set by the Encoder)
+        as the temporal-stability hint. Offsets are multiples of
+        1 << DELTA_Q_RES so every SB-to-SB delta is codable."""
+        return analysis.variance_qmap(y_padded, self.seq.sb_rows,
+                                      self.seq.sb_cols,
+                                      self.cfg.base_q_idx,
+                                      self.DELTA_Q_RES,
+                                      prev_y=self.aq_prev_luma,
+                                      classes=self._classes)
+
+    def _write_delta_q(self, mi_row, mi_col, size, skip) -> None:
+        """Per-SB qindex delta at the first block of the SB (spec
+        5.11.5: a full-SB skip block codes nothing and leaves the
+        running qindex unchanged)."""
+        if self.qmap_t is None or not self._read_deltas:
+            return
+        self._read_deltas = False
+        if size == 64 and skip:
+            return
+        self.cur_qindex = delta_syntax.write_delta_to(
+            self.w, self.fc, self.cur_qindex,
+            int(self.qmap_t[mi_row // 16, mi_col // 16]), self.DELTA_Q_RES)
 
     # --- leaf enumeration + dependency waves ----------------------------------
     def _fixed_leaf_sizes(self, target: int):
@@ -208,12 +254,24 @@ class WavefrontIntraEncoder:
         rects = common.tile_rects(self.seq.sb_cols, self.seq.sb_rows,
                                   frame_mi_cols, frame_mi_rows,
                                   *self.tile_log2)
+        self.qmap = None
+        if cfg.adaptive_quantization == 1:
+            # variance AQ; under TPL AQ (2) the key frame codes flat — its
+            # quality boost comes from key-frame qp scaling, and the TPL
+            # redistribution applies to the inter frames that reference
+            # it (EbInitialRateControlProcess.c:954)
+            self._classes = analysis.content_classes(
+                frame_src[0], frame_src[1], frame_src[2], self.seq.sb_rows,
+                self.seq.sb_cols, cfg.bit_depth)
+            self.qmap = self._variance_qmap(frame_src[0])
+            # per-lane qindex rides the per-wave loop's decide operands;
+            # the fused tile programs take one qindex (the JAX gate)
+            self._fused = False
         tile_states = []
         frame_leaves = {}
         self._tile_count = len(rects)
         # several tiles: each tile's analysis defers into one frame-batched
-        # program whose step w runs wave w of every tile (the JAX gate; the
-        # port's config refuses AQ, so there is no qmap)
+        # program whose step w runs wave w of every tile (the JAX gate)
         self._defer_tiles = [] if self._fused and len(rects) > 1 else None
         # the per-wave loop likewise runs wave w of every tile as one step
         # (tiles share no prediction edge, so the lanes are independent)
@@ -227,7 +285,7 @@ class WavefrontIntraEncoder:
                   ("src", "recon", "mi_rows", "mi_cols", "sb_rows_t",
                    "sb_cols_t", "max_wh", "leaf_sizes", "leaf_index",
                    "y_mode", "uv_mode", "y_delta", "uv_delta", "alpha_u",
-                   "alpha_v", "qcoeff", "eobs", "y_tx_type")}
+                   "alpha_v", "qcoeff", "eobs", "y_tx_type", "qmap_t")}
             st["rect"] = rect
             tile_states.append(st)
             for (r, c), s in self.leaf_sizes.items():
@@ -271,6 +329,10 @@ class WavefrontIntraEncoder:
                                      x0 // 2:(x0 + pw) // 2]]
         self.mi_rows, self.mi_cols = mi_rs, mi_cs
         self.sb_rows_t, self.sb_cols_t = sb_rs, sb_cs
+        self.qmap_t = None
+        if self.qmap is not None:
+            sr, sc = mi_r0 // 16, mi_c0 // 16
+            self.qmap_t = self.qmap[sr:sr + sb_rs, sc:sc + sb_cs]
 
     def _analyze_tile(self) -> None:
         """Leaf map (partition DP or fixed grid), then the tile's waves:
@@ -331,8 +393,9 @@ class WavefrontIntraEncoder:
         """The current tile as the per-wave loop sees it: its planes and
         pixel bounds, its decision arrays (the same objects the tile's
         state keeps, so the loop's writes land there), its smoothness
-        maps, and per leaf its (mi_row, mi_col, w, h), dependency wave,
-        shape key and above-right / bottom-left availability."""
+        maps, its SB qindex map under adaptive quantization (or None), and
+        per leaf its (mi_row, mi_col, w, h), dependency wave, shape key and
+        above-right / bottom-left availability."""
         larr = np.array([(r, c, wh[0], wh[1]) for r, c, wh in leaves],
                         dtype=np.int64).reshape(-1, 4)
         vab_all = [avail.leaf_vert_ab(
@@ -341,7 +404,7 @@ class WavefrontIntraEncoder:
         tile = {k: getattr(self, k) for k in
                 ("src", "recon", "max_wh", "y_mode", "uv_mode", "y_delta",
                  "uv_delta", "alpha_u", "alpha_v", "qcoeff", "eobs",
-                 "y_tx_type", "_sm_y", "_sm_uv")}
+                 "y_tx_type", "_sm_y", "_sm_uv", "qmap_t")}
         tile.update(
             larr=larr,
             waves=self._dependency_waves(leaves, self.mi_cols, self.mi_rows),
@@ -376,7 +439,8 @@ class WavefrontIntraEncoder:
         """Decide and code the leaves of one wave, all bw x bh, given per
         tile as (tile, leaf ids): luma, then U (which picks the chroma
         mode), then V (forced to U's choice), storing the decisions in
-        each tile's arrays."""
+        each tile's arrays. Under adaptive quantization every lane carries
+        its SB's qindex and lambda (one call covers every AQ group)."""
         lanes = [(t, t["larr"][ids, 1] * 4, t["larr"][ids, 0] * 4,
                   t["htr"][ids], t["hbl"][ids]) for t, ids in parts]
         half = [(t, xs >> 1, ys >> 1, htr, hbl)
@@ -388,8 +452,14 @@ class WavefrontIntraEncoder:
                                   for (t, _), (r, c) in zip(parts, rc)])
             ftuv = np.concatenate([_ftype_from(t["_sm_uv"], r >> 1, c >> 1)
                                    for (t, _), (r, c) in zip(parts, rc)])
+        qv = lamv = None
+        if self.qmap is not None:
+            qv = np.concatenate([t["qmap_t"][t["larr"][ids, 0] // 16,
+                                             t["larr"][ids, 1] // 16]
+                                 for t, ids in parts])
+            lamv = rd.lane_lambdas(qv, self.cfg.bit_depth)
         best, bdel, qc, eo, _, ytt = self._wave_compute(
-            0, lanes, (bw, bh), cands, ftype=fty)
+            0, lanes, (bw, bh), cands, ftype=fty, qv=qv, lamv=lamv)
         cfl_luma = None
         if bw <= 32 and bh <= 32:  # cfl_allowed
             cfl_luma = np.concatenate([
@@ -398,10 +468,10 @@ class WavefrontIntraEncoder:
                 for t, xs, ys, _, _ in lanes])
         bestc, cdel, qcc, eoc, au, _ = self._wave_compute(
             1, half, (bw >> 1, bh >> 1), cands, cfl_luma=cfl_luma,
-            ftype=ftuv)
+            ftype=ftuv, qv=qv, lamv=lamv)
         _, _, qcv, eov, av, _ = self._wave_compute(
             2, half, (bw >> 1, bh >> 1), cands, forced=(bestc, cdel),
-            cfl_luma=cfl_luma, ftype=ftuv)
+            cfl_luma=cfl_luma, ftype=ftuv, qv=qv, lamv=lamv)
         k0 = 0
         for t, ids in parts:
             sl = slice(k0, k0 + len(ids))
@@ -432,7 +502,9 @@ class WavefrontIntraEncoder:
         """The in-loop filters on the device (deblocking, then CDEF and LR
         as the config enables them) + display crop. Syntax inputs are
         parked on ``self._pkg`` for ``package_syntax`` — which may run
-        later on the encoder's entropy worker, off the compute thread."""
+        later on the encoder's entropy worker, off the compute thread.
+        The crop carries no film grain: the Encoder adds it to the
+        display output (``Encoder.get_packet``)."""
         cfg = self.cfg
         lf_levels = (0, 0, 0, 0)
         if cfg.enable_dlf:
@@ -452,9 +524,11 @@ class WavefrontIntraEncoder:
                                 :(cfg.width + 1) // 2],
                  frame_recon[2][:(cfg.height + 1) // 2,
                                 :(cfg.width + 1) // 2]]
+        fg = grain_ops.resolved_params(cfg) \
+            if self.seq.film_grain_params_present else None
         self._pkg = dict(tile_states=tile_states, lf_levels=lf_levels,
-                         cdef_kw=cdef_kw, lr_kw=lr_kw, frame_src=frame_src,
-                         frame_recon=frame_recon)
+                         cdef_kw=cdef_kw, lr_kw=lr_kw, fg=fg,
+                         frame_src=frame_src, frame_recon=frame_recon)
         return recon
 
     def package_syntax(self):
@@ -486,6 +560,9 @@ class WavefrontIntraEncoder:
                              loop_filter_levels=pkg["lf_levels"],
                              tile_cols_log2=self.tile_log2[0],
                              tile_rows_log2=self.tile_log2[1],
+                             delta_q_present=(self.qmap is not None),
+                             delta_q_res=self.DELTA_Q_RES,
+                             film_grain=pkg["fg"],
                              **pkg["cdef_kw"], **pkg["lr_kw"])
         from svt_av1_tpu_torch.entropy import mv as mv_syntax
         self.final_entropy = (
@@ -516,9 +593,11 @@ class WavefrontIntraEncoder:
         self.ctxs = TileContexts(self.mi_cols, self.mi_rows)
         self._cdef_written = set()
         self.lr_ref = [lr_syntax.LrRefState() for _ in range(3)]
+        self.cur_qindex = cfg.base_q_idx
         r0, c0 = self.tile_mi_off
         for sb_y in range(0, self.sb_rows_t * 16, 16):
             for sb_x in range(0, self.sb_cols_t * 16, 16):
+                self._read_deltas = self.qmap_t is not None
                 # the restoration units whose syntax lands at this SB
                 lr_syntax.write_sb_units(self.w, self.fc, self.lr_rinfos,
                                          self.lr_ref, sb_y + r0, sb_x + c0,
@@ -571,6 +650,7 @@ class WavefrontIntraEncoder:
         postfilter.write_cdef_idx(self.w, self.cdef_idx_map,
                                   self._cdef_written, mi_row, mi_col,
                                   self.tile_mi_off, skip)
+        self._write_delta_q(mi_row, mi_col, size if bw == bh else 0, skip)
         mode_syntax.write_intra_luma_mode_kf(self.w, self.fc, self.ctxs,
                                              y_mode, mi_row, mi_col)
         if intra_dir.is_directional(y_mode):

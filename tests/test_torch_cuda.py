@@ -738,3 +738,105 @@ def test_per_lane_filter_mc_at_the_inter_batch(cuda):
             want = fn(*ops[:4], w, h, ss=ss, ref_idx=ops[4],
                       ftype=ops[5])
             assert torch.equal(got.cpu(), want)
+
+
+def _tool_streams(frames, **extra):
+    """encode_ivf of ``frames`` at preset 5, hier-3, 2 tile columns, with
+    the rate and analysis tools in ``extra``, on cuda and on the CPU."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
+    h, w = frames[0][0].shape
+    return {d: encode_ivf(frames, dataclasses.replace(preset_config(
+        width=w, height=h, preset=5, intra_period=-1, hierarchical_levels=3,
+        tile_columns=1, device=d), **extra)) for d in ("cuda", "cpu")}
+
+
+def test_aq_stream_on_card_equals_cpu(cuda):
+    """Variance AQ at 448x136 (a partial superblock row): the key frame's
+    per-wave loop and the inter shape groups and flips with per-lane
+    qindex, on the card as on the CPU."""
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=136, frames=9, seed=3)
+    ivf = _tool_streams(frames, adaptive_quantization=1)
+    assert ivf["cuda"] == ivf["cpu"]
+
+
+def test_vbr_tpl_stream_on_card_equals_cpu(cuda):
+    """VBR with lookahead, TPL AQ, film grain and denoising: the rate
+    controller reads every frame's bits before the next frame's qindex,
+    so the card's stream equals the CPU's."""
+    from svt_av1_tpu_torch.config import RateControlMode
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=136, frames=9, seed=3)
+    ivf = _tool_streams(frames, adaptive_quantization=2,
+                        rate_control_mode=RateControlMode.VBR,
+                        target_bit_rate=600_000, look_ahead_distance=4,
+                        film_grain_strength=10, enable_source_denoise=True)
+    assert ivf["cuda"] == ivf["cpu"]
+
+
+def test_satd_dp_stream_on_card_equals_cpu(cuda):
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=136, frames=5, seed=3)
+    ivf = _tool_streams(frames, intra_dp_satd=True)
+    assert ivf["cuda"] == ivf["cpu"]
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_satd_modes_on_card_equal_cpu(cuda, bd):
+    """The SATD twin (float64 Hadamard products) on the card against its
+    CPU run at every DP size, with saturated residuals, at a 1080p
+    depth's batch (8160 16x16 blocks)."""
+    from svt_av1_tpu_torch.pipeline import rd
+    rng = np.random.default_rng(bd)
+    src = rng.integers(0, 1 << bd, (1088, 1920)).astype(np.int32)
+    src[:, ::2] = (1 << bd) - 1
+    for size in (8, 16, 32, 64, (16, 8), (8, 16), (32, 16), (16, 32),
+                 (64, 32), (32, 64), (32, 8), (8, 32), (64, 16), (16, 64)):
+        bw, bh = (size, size) if isinstance(size, int) else size
+        gy, gx = np.mgrid[0:1088 - bh + 1:bh, 0:1920 - bw + 1:bw]
+        xs, ys = gx.reshape(-1), gy.reshape(-1)
+        ins = rd._depth_inputs(src, xs, ys, size, 1920, 1080, 480, 270, bd)
+        modes = (0, 1, 2, 3, 7, 9, 12)
+        got = tmd.satd_modes(*ins, modes, size, bd, device="cuda")
+        want = tmd.satd_modes(*ins, modes, size, bd, device="cpu")
+        assert torch.equal(got.cpu(), want), size
+
+
+def test_checkpoint_moves_between_card_and_cpu(cuda):
+    """A checkpoint taken on the card resumes on the CPU, and one taken
+    on the CPU on the card; both streams equal the uninterrupted one."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=192, h=128, frames=11, seed=4)
+
+    def packets(enc, send):
+        out = []
+        for f in send:
+            enc.send_picture(*f)
+            while (p := enc.get_packet()) is not None:
+                out.append(p[0])
+        return out
+
+    def finish(enc):
+        enc.flush()
+        out = []
+        while (p := enc.get_packet()) is not None:
+            out.append(p[0])
+        return out
+
+    cfgs = {d: preset_config(width=192, height=128, preset=5,
+                             hierarchical_levels=2, tbr=400_000, lad=3,
+                             device=d) for d in ("cuda", "cpu")}
+    whole = Encoder(cfgs["cpu"])
+    want = packets(whole, frames) + finish(whole)
+    for first, then in (("cuda", "cpu"), ("cpu", "cuda")):
+        enc = Encoder(cfgs[first])
+        got = packets(enc, frames[:6])
+        state = enc.save_state()
+        got += packets(enc, [])
+        resumed = Encoder.load_state(state, device=then)
+        assert resumed.cfg.device == then
+        got += packets(resumed, frames[6:]) + finish(resumed)
+        assert got == want, (first, then)

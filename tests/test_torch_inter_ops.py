@@ -208,9 +208,13 @@ def test_ref_prep_matches_jax(valid):
 
 @pytest.mark.parametrize("rect", [False, True])
 def test_dp_all_matches_jax(rect):
+    """The DP's searches on a source padded to whole superblocks, as the
+    encoder's always is (there the JAX package's host DP and its device
+    twin clamp the root MVs alike)."""
     refp, src = _planes(13)
     pyr = jme.build_pyramid(refp)
-    spyr = jme.src_pyramid(src)
+    spyr = jme.src_pyramid(np.pad(src, ((0, -H % 64), (0, -W % 64)),
+                                  mode="edge"))
     sizes = (64, 32, 16, 8)
     arms = []
     if rect:
@@ -229,6 +233,50 @@ def test_dp_all_matches_jax(rect):
         for g, w in zip(got[k], want[k]):
             assert g.dtype == np.int64
             _eq(g, w)
+
+
+def test_dp_root_clamp_follows_the_jax_host_dp():
+    """A 960x544 frame, whose planes are bucket-padded to 1280x768: the
+    DP's root search clamps its MVs to the 64-padded frame (960x576), as
+    the JAX package's host DP does (it searches the 64-padded luma; its
+    device twin clamps to the bucket), and the leaf map equals the host
+    DP's. The clip pans 24 px right over the 8 frames between the two, so
+    right-edge blocks reach the clamp."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from svt_av1_tpu.app.cli import preset_config
+    from svt_av1_tpu.pipeline import common as jcommon
+    from svt_av1_tpu.pipeline import rd as jrd
+    from svt_av1_tpu_torch.convert import config_from_jax
+    from svt_av1_tpu_torch.pipeline import rd as trd
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    w, h = 960, 544
+    f0, f8 = (f[0] for f in make_clip(w=w, h=h, frames=9, seed=3)[::8])
+    ref_b = jcommon.pad_frame_planes(f0, f0[::2, ::2], f0[::2, ::2])[0]
+    src_b = jcommon.pad_frame_planes(f8, f8[::2, ::2], f8[::2, ::2])[0]
+    assert src_b.shape == (768, 1280)
+    refp = jmc.pad_reference(ref_b.astype(np.uint8), valid_hw=(576, 960))
+    pyr = jme.build_pyramid(refp)
+    spyr = jme.src_pyramid(src_b.astype(np.uint8))
+    jcfg = preset_config(SimpleNamespace(
+        width=w, height=h, qp=40, bit_depth=8, intra_period=-1, fps=30,
+        film_grain=0, preset=5, hierarchical_levels=3, tbr=0, lad=0,
+        backend="host"))
+    want = jrd.choose_partition_inter(f8, refp, jcfg, w // 4, h // 4,
+                                      ref_pyr=pyr, src_pyr=spyr)
+    tpyr = tuple(_t(p) for p in pyr)
+    tspyr = tuple(_t(p) for p in spyr)
+    got = trd.choose_partition_inter(
+        config_from_jax(dataclasses.asdict(jcfg), device="cpu"), w // 4,
+        h // 4, tpyr, tspyr)
+    assert got == want
+    xs, ys = (torch.as_tensor(a.reshape(-1)) for a in
+              np.meshgrid(np.arange(0, w, 64), np.arange(0, h, 64)))
+    frame, _ = tdi.fullpel_search_j(tpyr, tspyr, xs, ys, 64,
+                                    plane_hw=(576, 960))
+    bucket, _ = tdi.fullpel_search_j(tpyr, tspyr, xs, ys, 64)
+    assert not torch.equal(frame, bucket)     # the clamp binds here
 
 
 def test_sse_at_reads_the_jax_gather_rule():

@@ -226,11 +226,14 @@ def _flip_encoders(leaves=None, pick=None):
     return jenc, tenc, flips
 
 
-def _assert_flip_apply_equal(jenc, tenc, flips, waves, host=False):
+def _assert_flip_apply_equal(jenc, tenc, flips, waves, host=False,
+                             fused_declines=True):
     """The port's flip apply against the JAX package's fused programs, or
-    with ``host`` against its host recode (``_flip_apply_wave``)."""
+    with ``host`` against its host recode (``_flip_apply_wave``; with
+    ``fused_declines`` the fused programs must refuse these waves)."""
     if host:
-        assert not jdt.flip_apply_fused(jenc, waves)   # it asks for the host
+        if fused_declines:
+            assert not jdt.flip_apply_fused(jenc, waves)   # asks for host
         for wave in waves:
             jenc._flip_apply_wave(wave)
     else:
@@ -270,6 +273,31 @@ def test_flip_apply_wide_wave_matches_jax():
     assert tenc._flip_waves(flips) == waves
     assert [len(w) for w in waves] == [32]
     _assert_flip_apply_equal(jenc, tenc, flips, waves)
+
+
+@pytest.mark.parametrize("qindex,every", [(8, False), (20, True)])
+def test_flip_apply_matches_the_jax_host_recode(qindex, every):
+    """Where the JAX package's two flip recodes part, the port follows the
+    host one (``_flip_apply_wave``, whose streams are the reference): it
+    prices the chroma loops with the luma (plane type 0) trim and rate
+    tables, its fused device programs with the chroma ones, and at these
+    qindexes that changes a CfL or coefficient choice."""
+    jenc, tenc, flips = _flip_encoders(
+        pick=(lambda i, r, c: True) if every else None)
+    fused, _, _ = _flip_encoders(
+        pick=(lambda i, r, c: True) if every else None)
+    for enc in (jenc, tenc, fused):
+        enc.qp = jquant.make_quant_params(qindex)
+        enc.lam = jrd.rd_lambda(qindex, 8)
+    waves = jenc._flip_waves(flips)
+    assert jdt.flip_apply_fused(fused, waves)
+    _assert_flip_apply_equal(jenc, tenc, flips, waves, host=True,
+                             fused_declines=False)
+    same = [np.array_equal(np.asarray(a), np.asarray(b))
+            for a, b in zip(fused.recon, jenc.recon)]
+    same += [np.array_equal(getattr(fused, k), getattr(jenc, k))
+             for k in ("eobs", "intra_uv_cfl")]
+    assert not all(same)                 # the two JAX recodes part here
 
 
 def test_flip_apply_at_qindex_0_with_rdoq_raises():
