@@ -1087,13 +1087,16 @@ def phase_search(torch):
         shapes, biggest
 
 
-def _tool_spies(frames_rec, satd):
+def _tool_spies(frames_rec, headers, satd):
     """Spies of the rate and analysis phases: per coded frame (in coding
-    order) its kind, base qindex, SB qindex map, whether its headers carry
-    film grain parameters, its kernel launches and how many of them had
-    rows of differing qindex (a spy on ``qv``); and into ``satd`` every
-    SATD issue of the intra partition DP (``devices``) and the largest
-    call's host inputs (``largest``) for the check against the CPU."""
+    order) its kind, base qindex, SB qindex map, its kernel launches and
+    how many of them had rows of differing qindex (a spy on ``qv``); into
+    ``headers``, per frame header written (the entropy worker writes them
+    in coding order), whether it carried film grain parameters; and into
+    ``satd`` every SATD issue of the intra partition DP (``devices``) and
+    the largest call's host inputs (``largest``) for the check against
+    the CPU."""
+    from svt_av1_tpu_torch.bitstream import obu
     from svt_av1_tpu_torch.ops import device as dev
     from svt_av1_tpu_torch.pipeline import encoder as tenc
     from svt_av1_tpu_torch.pipeline import inter as tinter
@@ -1138,8 +1141,16 @@ def _tool_spies(frames_rec, satd):
             return out
         return call
 
+    def header_spy(fn):
+        def call(seq, fh, *a, **k):
+            headers.append(bool(seq.film_grain_params_present
+                                and fh.film_grain is not None))
+            return fn(seq, fh, *a, **k)
+        return call
+
     satd.update(devices=[], largest=(([],), {}))
     return [(tenc.Encoder, "_encode_key", frame_spy("key")),
+            (obu, "write_frame_obu", header_spy),
             (tenc.Encoder, "_encode_inter", frame_spy("inter")),
             (twf.WavefrontIntraEncoder, "_package_compute", enc_spy),
             (tinter.InterFrameEncoder, "encode_compute", enc_spy),
@@ -1156,7 +1167,6 @@ def _frame_summary(rec) -> dict:
             "sbs_off_base": 0 if qmap is None else int((qmap != base).sum()),
             "qindex_range": None if qmap is None
             else [int(qmap.min()), int(qmap.max())],
-            "grain_params": bool(enc.seq.film_grain_params_present),
             "kernel_launches": rec["launches"],
             "mixed_qindex_launches": rec["mixed"]}
 
@@ -1168,10 +1178,15 @@ def _tools_encode(torch, tag, cfg, golden_bytes, golden_sha):
     calls, key frame records, tracer)."""
     from svt_av1_tpu_torch.utils.clip import make_clip
     frames = make_clip(w=WIDTH, h=HEIGHT, frames=RA_FRAMES, seed=3)
-    recs, satd = [], {}
+    recs, headers, satd = [], [], {}
     ivf, dt, launches, shapes, plain_calls, tracer, keys = _encode_counted(
-        torch, frames, cfg, spies=_tool_spies(recs, satd))
+        torch, frames, cfg, spies=_tool_spies(recs, headers, satd))
     per_frame = [_frame_summary(r) for r in recs]
+    if len(headers) != len(per_frame):
+        raise SystemExit(f"{tag}: {len(headers)} frame headers written for "
+                         f"{len(per_frame)} coded frames")
+    for f, grain in zip(per_frame, headers):
+        f["grain_params"] = grain
     sha = hashlib.sha256(ivf).hexdigest()
     spans = tracer.summary()
     key_s = sum(s["dur"] for s in tracer.spans if s["stage"] == "keyframe")

@@ -48,6 +48,17 @@ def write_delta_to(w, fc, cur_qindex: int, target: int,
     return new
 
 
+def write_sb_delta(w, fc, cur_qindex: int, target: int, size: int,
+                   skip: bool, delta_q_res: int) -> int:
+    """The SB's delta at its first block (``size``: that block's square
+    size, 0 for a rect): a full-SB skip block codes nothing and leaves
+    the running qindex unchanged (spec 5.11.5). Returns the running
+    qindex."""
+    if size == 64 and skip:
+        return cur_qindex
+    return write_delta_to(w, fc, cur_qindex, target, delta_q_res)
+
+
 def apply_delta(prev_qindex: int, delta: int, delta_q_res: int) -> int:
     """CurrentQIndex update (spec 5.11.5): clamp keeps 0 (lossless)
     unreachable."""

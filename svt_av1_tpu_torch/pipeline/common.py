@@ -12,7 +12,38 @@ from svt_av1_tpu_torch.utils.blocks import (MAX_TX_SIZE_OF_BLOCK, MODE_TO_TXFM,
                                       SQUARE_BLOCK_OF_SIZE, TX_HEIGHT,
                                       TX_SIZE_SQR_UP, TX_WIDTH, TX_32X32,
                                       DCT_DCT)
+from svt_av1_tpu_torch.bitstream import obu
 from svt_av1_tpu_torch.entropy import tx_sets
+
+
+def sequence_header(cfg) -> obu.SequenceHeader:
+    """The stream's sequence header for ``cfg``: film grain is present
+    when a strength or a full parameter set is configured."""
+    return obu.SequenceHeader(width=cfg.width, height=cfg.height,
+                              bit_depth=cfg.bit_depth,
+                              enable_cdef=cfg.enable_cdef,
+                              enable_restoration=cfg.enable_restoration,
+                              enable_intra_edge_filter=(
+                                  cfg.enable_intra_edge_filter),
+                              film_grain_params_present=(
+                                  cfg.film_grain_strength > 0
+                                  or cfg.film_grain_params is not None),
+                              color_primaries=cfg.color_primaries,
+                              transfer_characteristics=(
+                                  cfg.transfer_characteristics),
+                              matrix_coefficients=cfg.matrix_coefficients,
+                              color_range=cfg.color_range,
+                              **obu.order_hint_fields(cfg.enable_tmvp))
+
+
+def frame_grain(cfg, seq, film_grain=None):
+    """A frame header's film grain parameters: ``film_grain`` when given
+    (the Encoder resolves the stream's once), else resolved from ``cfg``
+    when ``seq`` carries grain; None when it does not."""
+    if film_grain is not None or not seq.film_grain_params_present:
+        return film_grain
+    from svt_av1_tpu_torch.ops import grain as grain_ops
+    return grain_ops.resolved_params(cfg)
 
 
 def pixel_dtype(bd: int):

@@ -40,7 +40,7 @@ from svt_av1_tpu_torch.config import EncoderConfig, RateControlMode
 from svt_av1_tpu_torch.entropy.inter_modes import (ALTREF2_FRAME,
                                                    GOLDEN_FRAME, LAST2_FRAME)
 from svt_av1_tpu_torch.ops import grain as grain_ops
-from svt_av1_tpu_torch.pipeline import analysis, tmvp
+from svt_av1_tpu_torch.pipeline import analysis, common, tmvp
 from svt_av1_tpu_torch.pipeline.common import pad_to_multiple
 from svt_av1_tpu_torch.pipeline.inter import InterFrameEncoder
 from svt_av1_tpu_torch.pipeline.rc import RateControl
@@ -88,24 +88,7 @@ class Encoder:
             "pyramid depth capped at 5 (reference MAX_HIERARCHICAL_LEVELS)"
         check_device(cfg.device)
         self.cfg = cfg
-        self.seq = obu.SequenceHeader(width=cfg.width, height=cfg.height,
-                                      bit_depth=cfg.bit_depth,
-                                      enable_cdef=cfg.enable_cdef,
-                                      enable_restoration=cfg.enable_restoration,
-                                      enable_intra_edge_filter=(
-                                          cfg.enable_intra_edge_filter),
-                                      film_grain_params_present=(
-                                          cfg.film_grain_strength > 0
-                                          or cfg.film_grain_params
-                                          is not None),
-                                      color_primaries=cfg.color_primaries,
-                                      transfer_characteristics=(
-                                          cfg.transfer_characteristics),
-                                      matrix_coefficients=(
-                                          cfg.matrix_coefficients),
-                                      color_range=cfg.color_range,
-                                      **obu.order_hint_fields(
-                                          cfg.enable_tmvp))
+        self.seq = common.sequence_header(cfg)
         # film grain synthesis parameters (display output only)
         self._grain = grain_ops.resolved_params(cfg) \
             if self.seq.film_grain_params_present else None
@@ -233,7 +216,7 @@ class Encoder:
         qv = self._qp_file_qp(disp_idx)
         if qv is not None:
             cfg = dataclasses.replace(cfg, qp=qv, qindex_override=None)
-        enc = WavefrontIntraEncoder(cfg)
+        enc = WavefrontIntraEncoder(cfg, film_grain=self._grain)
         enc.aq_prev_luma = self._aq_prev(y)
         self._key_disp = disp_idx
         hint = 0
@@ -283,7 +266,8 @@ class Encoder:
         qv = self._qp_file_qp(disp_idx)
         if qv is not None:   # qp-file pins the frame qp exactly
             cfg = dataclasses.replace(cfg, qp=qv, qindex_override=None)
-        enc = InterFrameEncoder(cfg, self.seq, self._ref_cache)
+        enc = InterFrameEncoder(cfg, self.seq, self._ref_cache,
+                                film_grain=self._grain)
         enc.aq_prev_luma = self._aq_prev(y)
         enc.tpl_qmap = self._tpl_maps.get(disp_idx)
         idx = [last_slot] * 7
@@ -563,7 +547,13 @@ class Encoder:
         slot stores, the GOP buffer, the rate-control, lookahead and
         scene-detector state. The JAX package's ``save_state`` layout
         (version 3): ``convert.state_from_jax`` maps its dicts onto this.
-        Packets not yet taken with ``get_packet`` stay queued."""
+        Packets not yet taken with ``get_packet`` stay queued.
+
+        The adaptive-quantization history (the previous source luma of
+        the variance AQ, the TPL anchor luma and the TPL maps) is not
+        saved, as in the JAX package: under ``adaptive_quantization`` a
+        resumed stream equals the JAX package's resumed stream, not the
+        uninterrupted one."""
         self._join_syntax()
         self._out = [(tu if isinstance(tu, bytes) else tu.result(), rec)
                      for tu, rec in self._out]

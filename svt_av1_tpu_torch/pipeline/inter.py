@@ -43,7 +43,6 @@ from svt_av1_tpu_torch.entropy.cdf import FrameContext
 from svt_av1_tpu_torch.entropy.ctx import TileContexts
 from svt_av1_tpu_torch.ops import device as dev_ops
 from svt_av1_tpu_torch.ops import device_inter as di
-from svt_av1_tpu_torch.ops import grain as grain_ops
 from svt_av1_tpu_torch.ops import mc
 from svt_av1_tpu_torch.ops import quant as quant_ops
 from svt_av1_tpu_torch.pipeline import (analysis, common, md, mvp,
@@ -73,12 +72,15 @@ class InterFrameEncoder:
     DELTA_Q_RES = 2
 
     def __init__(self, cfg: EncoderConfig, seq: obu.SequenceHeader,
-                 ref_cache=None):
+                 ref_cache=None, film_grain=None):
         """ref_cache: the stream's {id(plane): (plane, padded, pyramid)}
         store of prepared references (see _padded_ref); the Encoder
-        passes its own, so a slot is prepared once per stream."""
+        passes its own, so a slot is prepared once per stream.
+        film_grain: the stream's film grain parameters (see
+        common.frame_grain)."""
         self.cfg = cfg
         self.seq = seq
+        self.film_grain = common.frame_grain(cfg, seq, film_grain)
         self._ref_cache = {} if ref_cache is None else ref_cache
         self.device = torch.device(cfg.device)
         self.mi_cols = seq.mi_cols
@@ -334,9 +336,7 @@ class InterFrameEncoder:
                              interp_filter_switchable=(
                                  cfg.enable_interp_filter_search),
                              delta_q_res=self.DELTA_Q_RES,
-                             film_grain=(grain_ops.resolved_params(cfg)
-                                         if self.seq.film_grain_params_present
-                                         else None),
+                             film_grain=self.film_grain,
                              base_q_idx=cfg.base_q_idx,
                              disable_cdf_update=cfg.disable_cdf_update,
                              loop_filter_levels=self._lf_levels,
@@ -694,13 +694,11 @@ class InterFrameEncoder:
         if self.qmap is None or not self._read_deltas:
             return
         self._read_deltas = False
-        if size == 64 and skip:
-            return
-        self.cur_qindex = delta_syntax.write_delta_to(
+        self.cur_qindex = delta_syntax.write_sb_delta(
             self.w, self.fc, self.cur_qindex,
             int(self.qmap[(mi_row + self.tile_mi_off[0]) // 16,
                           (mi_col + self.tile_mi_off[1]) // 16]),
-            self.DELTA_Q_RES)
+            size, skip, self.DELTA_Q_RES)
 
     def _emit_partition(self, mi_row, mi_col, psize) -> None:
         if mi_row >= self.mi_rows or mi_col >= self.mi_cols:

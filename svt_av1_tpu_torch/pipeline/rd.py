@@ -97,11 +97,10 @@ def _analyze_depth_fetch(handle):
         + lam * float(16 << md.RATE_Q)
 
 
-def _dp_intra_overhead() -> float:
-    """Per-leaf fixed syntax overhead (bits) of the SATD intra DP model;
-    SVT_TPU_DP_INTRA_OVERHEAD (env) overrides it for calibration sweeps,
-    as in the JAX package."""
-    return float(os.environ.get("SVT_TPU_DP_INTRA_OVERHEAD", "24.0"))
+# Per-leaf fixed syntax overhead (bits) of the SATD intra DP model: the
+# JAX package's default (its SVT_TPU_DP_INTRA_OVERHEAD calibration knob is
+# not carried over).
+DP_INTRA_OVERHEAD_BITS = 24.0
 
 
 def _analyze_depth_satd_issue(src, xs, ys, size, modes, max_w: int,
@@ -132,7 +131,7 @@ def _analyze_depth_satd_fetch(handle):
     sse = 1.5 * (satd.astype(np.float64) ** 2) / (ntx * n)
     nq = n * qstep * qstep
     dist = np.minimum(sse, sse * 0.05 + 0.125 * nq)
-    rate = _dp_intra_overhead() + 0.6 * n * np.log2(1.0 + sse / nq)
+    rate = DP_INTRA_OVERHEAD_BITS + 0.6 * n * np.log2(1.0 + sse / nq)
     return dist + lam * rate
 
 

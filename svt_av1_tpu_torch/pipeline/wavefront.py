@@ -38,7 +38,6 @@ from svt_av1_tpu_torch.entropy.ctx import TileContexts
 from svt_av1_tpu_torch.ops import intra as intra_ops
 from svt_av1_tpu_torch.ops import intra_dir
 from svt_av1_tpu_torch.ops import device_tile
-from svt_av1_tpu_torch.ops import grain as grain_ops
 from svt_av1_tpu_torch.ops import quant as quant_ops
 from svt_av1_tpu_torch.ops.device import dlf_search_apply_dev
 from svt_av1_tpu_torch.ops.device_md import decide_block_batch_dev
@@ -52,26 +51,12 @@ from svt_av1_tpu_torch.utils.trace import span
 class WavefrontIntraEncoder:
     """Batched-wave keyframe encoder."""
 
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, film_grain=None):
+        """film_grain: the stream's film grain parameters (see
+        common.frame_grain)."""
         self.cfg = cfg
-        self.seq = obu.SequenceHeader(width=cfg.width, height=cfg.height,
-                                      bit_depth=cfg.bit_depth,
-                                      enable_cdef=cfg.enable_cdef,
-                                      enable_restoration=cfg.enable_restoration,
-                                      enable_intra_edge_filter=(
-                                          cfg.enable_intra_edge_filter),
-                                      film_grain_params_present=(
-                                          cfg.film_grain_strength > 0
-                                          or cfg.film_grain_params
-                                          is not None),
-                                      color_primaries=cfg.color_primaries,
-                                      transfer_characteristics=(
-                                          cfg.transfer_characteristics),
-                                      matrix_coefficients=(
-                                          cfg.matrix_coefficients),
-                                      color_range=cfg.color_range,
-                                      **obu.order_hint_fields(
-                                          cfg.enable_tmvp))
+        self.seq = common.sequence_header(cfg)
+        self.film_grain = common.frame_grain(cfg, self.seq, film_grain)
         self.order_hint = 0           # set by the driver (display index)
         self.mi_cols = self.seq.mi_cols
         self.mi_rows = self.seq.mi_rows
@@ -167,11 +152,10 @@ class WavefrontIntraEncoder:
         if self.qmap_t is None or not self._read_deltas:
             return
         self._read_deltas = False
-        if size == 64 and skip:
-            return
-        self.cur_qindex = delta_syntax.write_delta_to(
+        self.cur_qindex = delta_syntax.write_sb_delta(
             self.w, self.fc, self.cur_qindex,
-            int(self.qmap_t[mi_row // 16, mi_col // 16]), self.DELTA_Q_RES)
+            int(self.qmap_t[mi_row // 16, mi_col // 16]), size, skip,
+            self.DELTA_Q_RES)
 
     # --- leaf enumeration + dependency waves ----------------------------------
     def _fixed_leaf_sizes(self, target: int):
@@ -524,10 +508,8 @@ class WavefrontIntraEncoder:
                                 :(cfg.width + 1) // 2],
                  frame_recon[2][:(cfg.height + 1) // 2,
                                 :(cfg.width + 1) // 2]]
-        fg = grain_ops.resolved_params(cfg) \
-            if self.seq.film_grain_params_present else None
         self._pkg = dict(tile_states=tile_states, lf_levels=lf_levels,
-                         cdef_kw=cdef_kw, lr_kw=lr_kw, fg=fg,
+                         cdef_kw=cdef_kw, lr_kw=lr_kw,
                          frame_src=frame_src, frame_recon=frame_recon)
         return recon
 
@@ -562,7 +544,7 @@ class WavefrontIntraEncoder:
                              tile_rows_log2=self.tile_log2[1],
                              delta_q_present=(self.qmap is not None),
                              delta_q_res=self.DELTA_Q_RES,
-                             film_grain=pkg["fg"],
+                             film_grain=self.film_grain,
                              **pkg["cdef_kw"], **pkg["lr_kw"])
         from svt_av1_tpu_torch.entropy import mv as mv_syntax
         self.final_entropy = (

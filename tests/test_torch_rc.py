@@ -9,9 +9,11 @@ next frame's qindex is chosen. A scene cut inside the lookahead window
 truncates the complexity window. Checkpoints: a stream saved mid-GOP
 (lookahead and pyramid buffers full) and resumed in a new encoder equals
 the uninterrupted stream, and so does a JAX encoder's checkpoint resumed
-in the port through ``convert.state_from_jax``.
+in the port through ``convert.state_from_jax``. Under AQ, whose history
+no checkpoint holds, the port's resumed stream equals the JAX package's.
 """
 
+import copy
 import dataclasses
 from types import SimpleNamespace
 
@@ -145,5 +147,37 @@ def test_state_from_jax_resumes_to_the_jax_bytes():
     resumed = Encoder.load_state(state_from_jax(state, device="cpu"))
     assert resumed.cfg.device == "cpu"
     got += _run(resumed, frames[CKPT_CUT:]) + _finish(resumed)
+    assert len(got) == len(want)
+    assert got == want
+
+
+
+def _resumed(cls, cfg, frames, load):
+    """``frames`` through an encoder of ``cls`` stopped at CKPT_CUT and
+    resumed from its checkpoint with ``load``. The checkpoint is a deep
+    copy, as one written to disk is: the JAX package's holds the rate
+    controller's dict by reference (ROADMAP Queue 3)."""
+    first = cls(cfg)
+    out = _run(first, frames[:CKPT_CUT])
+    state = copy.deepcopy(first.save_state())
+    out += _packets(first)
+    first.flush()
+    resumed = load(state)
+    return out + _run(resumed, frames[CKPT_CUT:]) + _finish(resumed)
+
+
+@pytest.mark.parametrize("aq", [1, 2])
+def test_aq_checkpoint_resume_equals_the_jax_resumed_stream(aq):
+    """A checkpoint holds no AQ history in either package
+    (``Encoder.save_state``), so an AQ stream resumed in the port equals
+    the JAX package's resumed stream. At 256x128 under a fixed qp the
+    missing history moves TUs after the cut in both."""
+    frames = make_clip(w=256, h=128, frames=11, seed=4)
+    jcfg = dataclasses.replace(_jax_cfg(256, 128, 2, 0, 0),
+                               adaptive_quantization=aq)
+    want = _resumed(JaxEncoder, jcfg, frames, JaxEncoder.load_state)
+    got = _resumed(Encoder,
+                   config_from_jax(dataclasses.asdict(jcfg), device="cpu"),
+                   frames, lambda st: Encoder.load_state(st, device="cpu"))
     assert len(got) == len(want)
     assert got == want
