@@ -85,17 +85,36 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    controller's qindex must vary over the frames, every frame header must
    carry the grain parameters and the key frame must run the frame
    program; per frame its qindex and the SBs with a TPL delta;
-11. each mode and row length timed at the heaviest shape the seven
-   encodes gave it; one whole fused key frame program (the all-intra
-   clip's key frame, replayed under torch.profiler for its wall, device
-   busy time and device operations), beside it one wave of the per-wave
-   path through ``decide_block_batch_dev``, and one (step, shape) group
-   of the directional key frame replayed under torch.profiler; the
-   seconds each phase took (``[time]``);
-12. a ``{"kernels": [...]}`` line, one entry per mode and row length
-   (``launches``: the sum over the seven encodes; ``launches_by_path``:
-   each encode's own count, and the RA encode's inside its inter frames),
-   the card's line, and last the device line.
+11. ``[entry]``, the analysis entry steps: ``entry.entry()`` (64 blocks
+   of 16x16), ``intra_analysis_step`` over the 8160 16x16 luma blocks of
+   the clip's frame 0 (padded to 1088 rows, edges from the source),
+   ``inter_core_step`` and ``inter_core_subpel_step`` of frame 1 against
+   frame 0 (size 16, search range 16), each equal to its CPU run exactly,
+   each launching the kernel's quantize-only mode and never the plain
+   quantizer; times and launches;
+12. ``[app]``, the entry points a user runs: the CLI (``python -m
+   svt_av1_tpu_torch.app``, a subprocess with no ``--device``) on the
+   random-access clip as a 30:1 y4m, whose stream must equal
+   ``GOLDEN_RA_*`` and whose recon file the port's own mirror decoder
+   must reproduce frame by frame; the port's independent checker over
+   the stream's TUs up to the first with a compound block (the whole
+   stream would take minutes of host NumPy); the EbApi lifecycle
+   (``api.eb_*``) on the one-frame clip, whose packets as IVF must equal
+   ``GOLDEN_*``, and the checker over that key frame; the warmup tool at
+   1080p for 2 frames;
+13. each mode and row length timed at the heaviest shape the seven
+   encodes and the two phases above gave it; one whole fused key frame
+   program (the all-intra clip's key frame, replayed under
+   torch.profiler for its wall, device busy time and device operations),
+   beside it one wave of the per-wave path through
+   ``decide_block_batch_dev``, and one (step, shape) group of the
+   directional key frame replayed under torch.profiler; the seconds each
+   phase took (``[time]``);
+14. a ``{"kernels": [...]}`` line, one entry per mode and row length
+   (``launches``: the sum over the seven encodes, ``[entry]`` and
+   ``[app]``; ``launches_by_path``: each one's own count, and the RA
+   encode's inside its inter frames), the card's line, and last the
+   device line.
 
 Needs one CUDA device; without one it exits 2 and prints no result.
 Details (per-shape times, stage spans, ptxas report) go to
@@ -1323,6 +1342,314 @@ def phase_rc(torch):
     return res, shapes
 
 
+def _entry_inputs(np, frames):
+    """The [entry] operands from the RA clip's frames 0 and 1 at 1080p,
+    padded to 1088 rows by edge replication: every 16x16 luma block of
+    frame 0 with its edges from the source (indices clamped into the
+    frame; the have flags off on the first row and column), and frame 1's
+    luma against frame 0's."""
+    s = 16
+    pad = ((0, -HEIGHT % s), (0, -WIDTH % s))
+    y0, y1 = (np.pad(f[0], pad, mode="edge").astype(np.int32)
+              for f in frames[:2])
+    h, w = y0.shape
+    by, bx = np.divmod(np.arange((h // s) * (w // s)), w // s)
+    r0, c0 = by * s, bx * s
+    ar = np.arange(2 * s)
+    src = y0.reshape(h // s, s, w // s, s).transpose(0, 2, 1, 3) \
+        .reshape(-1, s, s)
+    above = y0[np.maximum(r0 - 1, 0)[:, None],
+               np.minimum(c0[:, None] + ar, w - 1)]
+    left = y0[np.minimum(r0[:, None] + ar, h - 1),
+              np.maximum(c0 - 1, 0)[:, None]]
+    tl = y0[np.maximum(r0 - 1, 0), np.maximum(c0 - 1, 0)]
+    return (src, above, left, tl, by > 0, bx > 0), y1, y0
+
+
+def _entry_step(torch, name, fn, args, **kw):
+    """One analysis step on the card with the launch counters set to 0
+    just before and read just after its first call (then timed once more,
+    warm), held equal to the same function on the CPU tensors. Fails
+    unless it launched the kernel's quantize-only mode, and only that,
+    and never ran the plain quantizer on the card. Returns (row,
+    {(mode, B, n, log_scale): launches})."""
+    from svt_av1_tpu_torch.ops import device as dev
+    plain = []
+    real_plain = dev.quantize_qv_plain
+
+    def spy(*a, **k):
+        plain.append(1)
+        return real_plain(*a, **k)
+
+    cuda_args = [torch.as_tensor(a, device="cuda") for a in args]
+    torch.cuda.synchronize()
+    dev.quantize_qv_plain = spy
+    try:
+        dev.LAUNCHES.clear()
+        dev.LAUNCH_SHAPES.clear()
+        t0 = time.perf_counter()
+        got = fn(*cuda_args, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches, shapes = dict(dev.LAUNCHES), dict(dev.LAUNCH_SHAPES)
+        t0 = time.perf_counter()
+        fn(*cuda_args, **kw)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        dev.quantize_qv_plain = real_plain
+    t0 = time.perf_counter()
+    want = fn(*[torch.as_tensor(a) for a in args], **kw)
+    cpu_s = time.perf_counter() - t0
+    exact = all(g.dtype == w.dtype and torch.equal(g.cpu(), w)
+                for g, w in zip(got, want))
+    print(f"[entry] {name}: B={got[0].shape[0]}; card {first_s * 1e3:.2f} "
+          f"ms (first call), {warm_s * 1e3:.2f} ms (again); CPU "
+          f"{cpu_s * 1e3:.1f} ms; launches {launches}, shapes "
+          f"{_shape_keys(shapes)}; plain quantizer calls {len(plain)}; "
+          f"equal to the CPU run: {exact}", flush=True)
+    if not exact:
+        raise SystemExit(f"entry: {name} on the card differs from the CPU")
+    if set(launches) != {"quantize_qv"} or plain:
+        raise SystemExit(f"entry: {name} launched {launches} with "
+                         f"{len(plain)} plain quantizer calls")
+    return {"name": name, "B": int(got[0].shape[0]), "first_s": first_s,
+            "warm_s": warm_s, "cpu_s": cpu_s, "launches": launches,
+            "launch_shapes": _shape_keys(shapes)}, shapes
+
+
+def phase_entry(torch):
+    """The analysis entry steps on the card: ``entry.entry()`` as it
+    stands (64 blocks of 16x16), ``intra_analysis_step`` over the 8160
+    16x16 luma blocks of the 1080p clip's frame 0, and
+    ``inter_core_step`` / ``inter_core_subpel_step`` of frame 1 against
+    frame 0 (size 16, search range 16). Returns (result, {(mode, B, n,
+    log_scale): launches} over the four)."""
+    import numpy as np
+
+    from svt_av1_tpu_torch.entry import entry
+    from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.ops import mc as mch
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    fn, args = entry()
+    if any(a.device.type != "cuda" for a in args):
+        raise SystemExit("entry: entry() did not put its operands on the "
+                         "card")
+    intra, cur, ref = _entry_inputs(
+        np, make_clip(w=WIDTH, h=HEIGHT, frames=2, seed=3))
+    steps = [("entry()", fn, [a.cpu() for a in args], {}),
+             ("intra_analysis_step", dev.intra_analysis_step, intra,
+              dict(size=16, qindex=160)),
+             ("inter_core_step", dev.inter_core_step,
+              (cur, np.pad(ref, 16, mode="edge")),
+              dict(size=16, search_range=16)),
+             ("inter_core_subpel_step", dev.inter_core_subpel_step,
+              (cur, mch.pad_reference(ref).astype(np.int32)),
+              dict(size=16, search_range=16))]
+    rows, shapes = [], collections.Counter()
+    for name, f, a, kw in steps:
+        row, sh = _entry_step(torch, name, f, a, **kw)
+        rows.append(row)
+        shapes.update(sh)
+    print("[entry] every step equals its CPU run exactly and launched "
+          "the quantize-only kernel; plain quantizer calls 0", flush=True)
+    return {"steps": rows}, shapes
+
+
+def _ivf_of(tus) -> bytes:
+    """An IVF of 1920x1080 temporal units at 30 fps, as ``encode_ivf``
+    writes it for the CLI's default frame rate."""
+    import io
+
+    from svt_av1_tpu_torch.bitstream.ivf import write_ivf_frame, \
+        write_ivf_header
+    buf = io.BytesIO()
+    write_ivf_header(buf, WIDTH, HEIGHT, 30, 1, len(tus))
+    for i, tu in enumerate(tus):
+        write_ivf_frame(buf, tu, i)
+    return buf.getvalue()
+
+
+def _app_cli(d: Path):
+    """The CLI as a user runs it, in a subprocess, with no --device: the
+    RA clip's y4m to out.ivf with recon.yuv and a trace. Returns (IVF
+    bytes, wall seconds, the fps the CLI printed, {(mode, B, n,
+    log_scale): launches} from its trace)."""
+    from svt_av1_tpu_torch.utils.clip import make_clip, write_y4m
+    write_y4m(d / "clip.y4m", make_clip(w=WIDTH, h=HEIGHT, frames=RA_FRAMES,
+                                        seed=3))
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(repo)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    cmd = [sys.executable, "-m", "svt_av1_tpu_torch.app", "-i",
+           str(d / "clip.y4m"), "-b", str(d / "out.ivf"), "-o",
+           str(d / "recon.yuv"), "-q", str(QP), "--preset", str(PRESET),
+           "--hierarchical-levels", str(RA_LEVELS), "--trace",
+           str(d / "t.json")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"app: the CLI exited {proc.returncode}:\n"
+                         f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    m = re.search(r"^(.*) ([0-9.]+) fps encode speed$", proc.stdout, re.M)
+    if not m:
+        raise SystemExit(f"app: the CLI printed no speed:\n{proc.stdout}")
+    print(f"[app] CLI: {m.group(0)}", flush=True)
+    with open(d / "t.json") as f:
+        trace = json.load(f)
+    shapes = collections.Counter(
+        {tuple(s[:4]): s[4] for s in trace["kernel_launch_shapes"]})
+    return (d / "out.ivf").read_bytes(), wall, float(m.group(2)), shapes, \
+        trace["summary"]
+
+
+def phase_app(torch):
+    """The entry points a user runs, on the card, and the port's own
+    verification of their streams: the CLI (``python -m
+    svt_av1_tpu_torch.app``, a subprocess with no --device) on the RA
+    clip, its stream against the RA golden and its recon against the
+    port's mirror decoder, the independent checker over the stream's
+    leading TUs up to the first with a compound block; the EbApi
+    lifecycle on the 1080p key frame against the all-intra golden, the
+    checker over it; the warmup tool. Returns (result, {(mode, B, n,
+    log_scale): launches} of the CLI, the API and the warmup)."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from svt_av1_tpu_torch import api
+    from svt_av1_tpu_torch.app.warmup import warm
+    from svt_av1_tpu_torch.bitstream.ivf import read_ivf
+    from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.ops import mc as mch
+    from svt_av1_tpu_torch.pipeline.decode import StreamDecoder
+    from svt_av1_tpu_torch.utils import yuv
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    from svt_av1_tpu_torch.verify.indep import check_ivf
+    shapes = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        ivf, wall, fps, cli_shapes, cli_spans = _app_cli(d)
+        sha = hashlib.sha256(ivf).hexdigest()
+        print(f"[app] CLI {WIDTH}x{HEIGHT} RA hier-{RA_LEVELS} preset "
+              f"{PRESET} qp {QP}, {RA_FRAMES} frames: wall {wall:.2f} s "
+              f"(process start, imports and kernel load included), "
+              f"{fps:.2f} fps as the CLI printed it; {len(ivf)} bytes, "
+              f"sha256 {sha}", flush=True)
+        _check_stream("CLI", ivf, sha, GOLDEN_RA_BYTES, GOLDEN_RA_SHA256)
+        cli_by = _by_mode_n(cli_shapes)
+        print(f"[app] CLI kernel launches (its trace): {cli_by}",
+              flush=True)
+        if not any(m in ("quant_stage", "quant_stage_rdoq")
+                   for m, _ in cli_by):
+            raise SystemExit("app: the CLI never launched the fused kernel")
+        shapes.update(cli_shapes)
+        _, tus = read_ivf(io.BytesIO(ivf))
+        tus = [p for _, p in tus]
+        compound = []
+        real_avg = mch.compound_average
+
+        def avg_spy(*a, **k):
+            compound.append(1)
+            return real_avg(*a, **k)
+
+        shown, first_comp = [], None
+        mch.compound_average = avg_spy
+        t0 = time.perf_counter()
+        try:
+            dec = StreamDecoder()
+            for i, tu in enumerate(tus):
+                before = len(compound)
+                out = dec.decode_tu(tu)
+                if out is not None:
+                    shown.append(out)
+                if first_comp is None and len(compound) > before:
+                    first_comp = i
+        finally:
+            mch.compound_average = real_avg
+        dec_s = time.perf_counter() - t0
+        with open(d / "recon.yuv", "rb") as fh:
+            recon = [(f.y, f.u, f.v) for f in
+                     yuv.read_yuv_frames(fh, WIDTH, HEIGHT)]
+    if len(shown) != RA_FRAMES or len(recon) != RA_FRAMES:
+        raise SystemExit(f"app: {len(shown)} decoded and {len(recon)} "
+                         f"recon frames, want {RA_FRAMES}")
+    for i, (a, b) in enumerate(zip(shown, recon)):
+        if not all(np.array_equal(pa, pb) for pa, pb in zip(a, b)):
+            raise SystemExit(f"app: decoded frame {i} differs from the "
+                             f"CLI's recon")
+    if first_comp is None:
+        raise SystemExit("app: the RA stream holds no compound block")
+    print(f"[app] the port's decoder: {len(tus)} TUs, {len(shown)} frames "
+          f"in {dec_s:.2f} s, each equal to the CLI's recon; first "
+          f"compound block in TU {first_comp}", flush=True)
+    t0 = time.perf_counter()
+    blocks = check_ivf(io.BytesIO(_ivf_of(tus[:first_comp + 1])))
+    chk_s = time.perf_counter() - t0
+    print(f"[app] the independent checker over TUs 0-{first_comp}: "
+          f"{blocks} blocks in {chk_s:.2f} s, no mismatch", flush=True)
+
+    frame = make_clip(w=WIDTH, h=HEIGHT, frames=1, seed=3)[0]
+    torch.cuda.synchronize()
+    dev.LAUNCHES.clear()
+    dev.LAUNCH_SHAPES.clear()
+    t0 = time.perf_counter()
+    handle, params = api.eb_init_handle()
+    params.width, params.height, params.qp = WIDTH, HEIGHT, QP
+    params.enc_mode, params.intra_period = PRESET, 0
+    rcs = [api.eb_svt_enc_set_parameter(handle, params),
+           api.eb_init_encoder(handle),
+           api.eb_svt_enc_send_picture(handle,
+                                       api.EbBufferHeaderType(pic=frame)),
+           api.eb_svt_enc_send_picture(handle, None)]
+    pkts = []
+    while (buf := api.eb_svt_get_packet(handle, done=True)) is not None:
+        pkts.append(buf.p_buffer)
+        api.eb_svt_release_out_buffer(buf)
+    rcs += [api.eb_deinit_encoder(handle), api.eb_deinit_handle(handle)]
+    torch.cuda.synchronize()
+    api_s = time.perf_counter() - t0
+    api_shapes = dict(dev.LAUNCH_SHAPES)
+    if any(rcs) or params.device != "cuda":
+        raise SystemExit(f"app: the API lifecycle returned {rcs}")
+    api_ivf = _ivf_of(pkts)
+    sha = hashlib.sha256(api_ivf).hexdigest()
+    print(f"[app] API lifecycle (eb_*, enc_mode {PRESET}, intra_period 0, "
+          f"qp {QP}, device {params.device}): {len(pkts)} packet(s) in "
+          f"{api_s:.2f} s, {len(api_ivf)} bytes as IVF, sha256 {sha}; "
+          f"launches {_by_mode_n(api_shapes)}", flush=True)
+    _check_stream("API", api_ivf, sha, GOLDEN_BYTES, GOLDEN_SHA256)
+    shapes.update(api_shapes)
+    t0 = time.perf_counter()
+    api_blocks = check_ivf(io.BytesIO(api_ivf))
+    api_chk_s = time.perf_counter() - t0
+    print(f"[app] the independent checker over the API's key frame: "
+          f"{api_blocks} blocks in {api_chk_s:.2f} s, no mismatch",
+          flush=True)
+
+    dev.LAUNCHES.clear()
+    dev.LAUNCH_SHAPES.clear()
+    warm_s = warm(WIDTH, HEIGHT, preset=PRESET, frames=2, verbose=False)
+    warm_shapes = dict(dev.LAUNCH_SHAPES)
+    if not warm_shapes:
+        raise SystemExit("app: the warmup launched no kernel")
+    shapes.update(warm_shapes)
+    print(f"[app] warmup {WIDTH}x{HEIGHT} preset {PRESET}, 2 frames: "
+          f"{warm_s:.2f} s; launches {_by_mode_n(warm_shapes)}", flush=True)
+    return {"cli_wall_s": wall, "cli_fps": fps, "cli_bytes": len(ivf),
+            "cli_spans": cli_spans, "cli_launch_shapes":
+            _shape_keys(cli_shapes), "decode_s": dec_s,
+            "decoded_frames": len(shown), "first_compound_tu": first_comp,
+            "checker_tus": first_comp + 1, "checker_blocks": blocks,
+            "checker_s": chk_s, "api_s": api_s, "api_bytes": len(api_ivf),
+            "api_checker_blocks": api_blocks, "api_checker_s": api_chk_s,
+            "warmup_s": warm_s}, shapes
+
+
 def phase_postfilter_profile(torch, replay) -> dict:
     """One inter frame's post-filters replayed from clones of its
     deblocked planes: CDEF + LR together (``postfilter.run_postfilters``),
@@ -1566,10 +1893,11 @@ def phase_profile(torch, np) -> dict:
 
 def kernel_entries(torch, by_path, shapes, int32_ops) -> list:
     """The kernels line: one entry per mode and row length, each timed at
-    the heaviest shape (B * n, then B) that the main path's encodes gave
-    it, against its plain version. A (mode, n) the encodes never launched
-    (the quantize-only mode, and some rows of the rate-only mode) is
-    timed at the heaviest shape any mode had at that n, or at B=8160.
+    the heaviest shape (B * n, then B) that the main path's runs gave
+    it, against its plain version. A (mode, n) the runs never launched
+    (the quantize-only mode but at n = 256, and some rows of the
+    rate-only mode) is timed at the heaviest shape any mode had at that
+    n, or at B=8160.
     ``by_path``: {path: {(mode, n): launches}}, each counted from 0 in its
     own run; ``ra_inter_frames`` is part of ``random_access``."""
     replaces = "svt_av1_tpu/ops/device.py:728 quantize_pallas " \
@@ -1656,6 +1984,8 @@ def main() -> int:
                                                     torch)
     aq_res, aq_shapes = timed("aq", phase_aq, torch)
     rc_res, rc_shapes = timed("rc", phase_rc, torch)
+    entry_res, entry_shapes = timed("entry", phase_entry, torch)
+    app_res, app_shapes = timed("app", phase_app, torch)
     by_path = {"all_intra": _by_mode_n(shapes),
                "random_access": _by_mode_n(inter_shapes),
                "ra_inter_frames": _by_mode_n(inter_frame_shapes),
@@ -1663,7 +1993,9 @@ def main() -> int:
                "postfilter": _by_mode_n(pf_shapes),
                "search": _by_mode_n(search_shapes),
                "aq": _by_mode_n(aq_shapes),
-               "rc": _by_mode_n(rc_shapes)}
+               "rc": _by_mode_n(rc_shapes),
+               "entry": _by_mode_n(entry_shapes),
+               "app": _by_mode_n(app_shapes)}
     shapes = collections.Counter(shapes)
     shapes.update(inter_shapes)
     shapes.update(dir_shapes)
@@ -1671,6 +2003,8 @@ def main() -> int:
     shapes.update(search_shapes)
     shapes.update(aq_shapes)
     shapes.update(rc_shapes)
+    shapes.update(entry_shapes)
+    shapes.update(app_shapes)
     kernels = timed("kernels", kernel_entries, torch, by_path, shapes,
                     env["int32_ops_per_s"])
     group_prof = timed("inter-profile", phase_group_profile, torch, biggest)
@@ -1691,6 +2025,7 @@ def main() -> int:
                    "slice": slice_res, "inter": inter_res,
                    "directional": dir_res, "postfilter": pf_res,
                    "search": search_res, "aq": aq_res, "rc": rc_res,
+                   "entry": entry_res, "app": app_res,
                    "kernels": kernels, "shape_group_profile": group_prof,
                    "keyframe_program_profile": key_prof,
                    "wave_profile": prof,

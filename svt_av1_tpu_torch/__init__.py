@@ -13,6 +13,10 @@ range coder) are its own copies.
   the streaming ``Encoder`` / ``encode_ivf``.
 - ``config.EncoderConfig``: the JAX package's fields with ``device`` in
   place of ``backend``; tools of later slices raise NotImplementedError.
+- The entry points: ``app/`` (``python -m svt_av1_tpu_torch.app``, the
+  decoder CLI, the warmup tool), ``api`` (the ``EbApi.h`` lifecycle),
+  ``entry`` (the analysis step); and the port's own verification, the
+  mirror decoder ``pipeline/decode`` and the checker ``verify/indep``.
 """
 
 __version__ = "0.1.0"

@@ -22,7 +22,8 @@ from svt_av1_tpu_torch.config import EncoderConfig
 _PKG = Path(__file__).resolve().parent
 # table file -> path inside the package (the same as in the JAX package)
 TABLES = ("entropy/data/default_cdfs.npz", "ops/data/txfm_networks.npz",
-          "pipeline/data/avail_tables.npz", "ops/data/grain_tables.npz")
+          "pipeline/data/avail_tables.npz", "ops/data/grain_tables.npz",
+          "verify/data/indep_tables.npz")
 
 
 def config_from_jax(d: dict, device: str = "cuda") -> EncoderConfig:

@@ -3,10 +3,12 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, loaded with ``ctypes``. Libraries go to
 the package's git-ignored ``build/cuda`` under a name keyed by the source
-and flag digest, so a changed source is rebuilt and concurrent builders
-never load a half-written file (each compiles to a per-process temporary
-name and renames it into place). Sources compile in parallel, one ``nvcc``
-per source. Nothing is built at import time.
+and flag digest, so a changed source is rebuilt. Concurrent first uses
+(threads of one process, or processes) build once and never load a
+half-written file: the build runs under ``utils.buildlock.build_lock``,
+compiles to a temporary name of its own thread and renames it into place.
+Sources compile in parallel, one ``nvcc`` per source. Nothing is built at
+import time.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from svt_av1_tpu_torch.utils.buildlock import build_lock, temp_path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build" / "cuda"
@@ -52,26 +56,28 @@ def build_all(names=None) -> dict:
     {name: nvcc's output (ptxas register and shared-memory report)} for
     the sources it compiled; raises RuntimeError if one fails."""
     names = list(KERNELS) if names is None else list(names)
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
+    if all(library_path(n).exists() for n in names):
         return {}
-    BUILD.mkdir(parents=True, exist_ok=True)
-    exe = nvcc_path()
-    procs = {}
-    for n in todo:
-        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[n])]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
-    logs, failed = {}, []
-    for n, (tmp, p) in procs.items():
-        out, _ = p.communicate()
-        logs[n] = out
-        if p.returncode != 0:
-            failed.append(f"{n}: nvcc exit {p.returncode}\n{out}")
-            continue
-        os.replace(tmp, library_path(n))
+    with build_lock(BUILD):
+        todo = [n for n in names if not library_path(n).exists()]
+        if not todo:            # another thread or process built them
+            return {}
+        exe = nvcc_path()
+        procs = {}
+        for n in todo:
+            tmp = temp_path(library_path(n))
+            cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[n])]
+            procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT,
+                                              text=True))
+        logs, failed = {}, []
+        for n, (tmp, p) in procs.items():
+            out, _ = p.communicate()
+            logs[n] = out
+            if p.returncode != 0:
+                failed.append(f"{n}: nvcc exit {p.returncode}\n{out}")
+                continue
+            os.replace(tmp, library_path(n))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs

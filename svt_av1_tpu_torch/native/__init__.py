@@ -4,8 +4,10 @@ The serial entropy stage runs as C (the equivalent of the reference's
 hand-optimized bitstream path); everything batched runs as PyTorch. The
 library is built with gcc into the package's git-ignored ``build/native``
 and invalidated by source content hash (mtime is unreliable across
-checkouts). The build writes a per-process temporary file and renames it
-into place, so concurrent test workers never load a half-written library.
+checkouts). The build runs under ``utils.buildlock.build_lock``, writes a
+temporary file of its own thread and renames it into place, so concurrent
+first uses (encoder threads, test workers) build once and never load a
+half-written library.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 import subprocess
 from pathlib import Path
 
+from svt_av1_tpu_torch.utils.buildlock import build_lock, temp_path
+
 _HERE = Path(__file__).resolve().parent
 _SOURCES = [_HERE / "svt_ec.c", _HERE / "svt_txfm.c", _HERE / "svt_quant.c"]
 _BUILD = _HERE.parent / "build" / "native"
@@ -27,24 +31,24 @@ c_u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
 def _build() -> Path:
-    _BUILD.mkdir(parents=True, exist_ok=True)
     so = _BUILD / "libsvt_native.so"
     stamp = _BUILD / "sources.sha256"
     h = hashlib.sha256()
     for s in _SOURCES:
         h.update(s.read_bytes())
     digest = h.hexdigest()
-    stale = (not so.exists() or not stamp.exists()
-             or stamp.read_text().strip() != digest)
-    if stale:
-        tmp = _BUILD / f"libsvt_native.{os.getpid()}.so"
-        cmd = ["gcc", "-O3", "-fPIC", "-shared", "-Wall", "-o", str(tmp)]
-        cmd += [str(s) for s in _SOURCES]
-        subprocess.check_call(cmd)
-        os.replace(tmp, so)
-        tmp_stamp = _BUILD / f"sources.{os.getpid()}.sha256"
-        tmp_stamp.write_text(digest)
-        os.replace(tmp_stamp, stamp)
+    with build_lock(_BUILD):
+        stale = (not so.exists() or not stamp.exists()
+                 or stamp.read_text().strip() != digest)
+        if stale:
+            tmp = temp_path(so)
+            cmd = ["gcc", "-O3", "-fPIC", "-shared", "-Wall", "-o", str(tmp)]
+            cmd += [str(s) for s in _SOURCES]
+            subprocess.check_call(cmd)
+            os.replace(tmp, so)
+            tmp_stamp = temp_path(stamp)
+            tmp_stamp.write_text(digest)
+            os.replace(tmp_stamp, stamp)
     return so
 
 

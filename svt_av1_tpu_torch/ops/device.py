@@ -1,14 +1,17 @@
 """PyTorch twins of the JAX package's device kernels (``svt_av1_tpu/ops/device.py``).
 
-Transforms, the quantizer, the intra predictors and the whole-frame
-deblocking program as integer tensor code that runs on any torch device.
+Transforms, the quantizer, the intra predictors, the analysis entry
+steps (``intra_analysis_step``, ``inter_core_step``,
+``inter_core_subpel_step``) and the whole-frame deblocking program as
+integer tensor code that runs on any torch device.
 Every function returns the same integers as its JAX twin; the tests hold
 them against it on the CPU.
 
 The quantizer is the one kernel written by hand: ``quantize_qv`` launches
 the CUDA kernel of ``csrc/quant.cu`` (quantize-only mode) on a CUDA
-tensor and runs ``quantize_qv_plain`` only on a CPU tensor; the same
-kernel's fused modes serve ``device_md.quant_stage_j``. Everything else here is plain
+tensor and runs ``quantize_qv_plain`` only on a CPU tensor (the static
+``quantize`` of the entry steps goes through it); the same kernel's
+fused modes serve ``device_md.quant_stage_j``. Everything else here is plain
 PyTorch on the card (in the JAX package it is XLA, not Pallas).
 
 Integer exactness notes: inverse transforms are normative and spec stage
@@ -30,9 +33,10 @@ from svt_av1_tpu_torch import cuda_build
 from svt_av1_tpu_torch.ops import quant as quant_host
 from svt_av1_tpu_torch.ops import transforms as tx_host
 from svt_av1_tpu_torch.ops import txfm1d
-from svt_av1_tpu_torch.utils.blocks import (DC_PRED, H_PRED, PAETH_PRED,
+from svt_av1_tpu_torch.utils.blocks import (DC_PRED, DCT_DCT, H_PRED,
+                                            MAX_TX_SIZE_OF_BLOCK, PAETH_PRED,
                                             SMOOTH_H_PRED, SMOOTH_PRED,
-                                            SMOOTH_V_PRED, V_PRED)
+                                            SMOOTH_V_PRED, V_PRED, get_scan)
 
 # launches of each hand-written kernel (per mode), and of each (mode, B,
 # n, log_scale) shape: a wrapper counts only where it launches its kernel
@@ -422,11 +426,33 @@ def quantize_qv(coeff, scan: np.ndarray, qv, log_scale: int, bd: int):
     return quant_stage_launch(QUANT_ONLY, coeff, scan, qv, log_scale, bd)
 
 
+def quantize(coeff, scan: np.ndarray, qp: quant_host.QuantParams,
+             log_scale: int, bd: int = 8):
+    """Twin of the JAX package's static-qindex ``quantize``: ``quantize_qv``
+    with ``qp.qindex`` on every row, so it launches the kernel on a CUDA
+    tensor (the JAX ``quantize`` rounds zbin and round by ``log_scale``
+    as the kernel's packed table does). ``qp`` must be the bd-bit table
+    row of its qindex, ``make_quant_params(qp.qindex, bit_depth=bd)``:
+    the table holds no DC/AC delta. Returns (q, dq, eob)."""
+    if qp != quant_host.make_quant_params(qp.qindex, bit_depth=bd):
+        raise ValueError("quantize: qp is not the quantizer table's row "
+                         f"of qindex {qp.qindex} at {bd} bits")
+    qv = torch.full((coeff.shape[0],), qp.qindex, dtype=torch.int32,
+                    device=coeff.device)
+    return quantize_qv(coeff.contiguous(), scan, qv, log_scale, bd)
+
+
 # --- intra predictors -------------------------------------------------------------
+@functools.lru_cache(maxsize=8)
+def intra_sm_weights(n: int) -> np.ndarray:
+    """The smooth predictors' weights of one block dimension, int32."""
+    from svt_av1_tpu_torch.ops.intra import _SM_WEIGHTS
+    return _SM_WEIGHTS[n].astype(np.int32)
+
+
 @functools.lru_cache(maxsize=16)
 def _sm_weights(n: int, device: torch.device) -> torch.Tensor:
-    from svt_av1_tpu_torch.ops.intra import _SM_WEIGHTS
-    return const(_SM_WEIGHTS[n].astype(np.int32), device)
+    return const(intra_sm_weights(n), device)
 
 
 def predict_modes(modes: tuple, above, left, top_left, have_above, have_left,
@@ -487,6 +513,27 @@ def predict_modes(modes: tuple, above, left, top_left, have_above, have_left,
             raise NotImplementedError(f"device intra mode {mode}")
         preds.append(p.to(torch.int64))
     return torch.stack(preds, dim=0)
+
+
+def _sum_i32(x, dims):
+    """The sum over ``dims`` as the JAX package's int32 ``jnp.sum`` gives
+    it: exact in int64, then wrapped to int32 (XLA's integer adds wrap,
+    so both are the exact sum modulo 2^32)."""
+    return x.sum(dim=dims, dtype=torch.int64).to(torch.int32)
+
+
+def mode_decision_sse(modes: tuple, src, above, left, top_left,
+                      have_above, have_left, bw: int, bh: int, bd: int = 8):
+    """Batched open-loop mode decision (twin of the JAX
+    ``mode_decision_sse``): src [B, bh, bw] int32. Returns (best mode
+    index [B] int32, the first minimum; preds [M, B, bh, bw] int32;
+    SSE costs [M, B] int32)."""
+    preds = predict_modes(modes, above, left, top_left, have_above,
+                          have_left, bw, bh, bd).to(torch.int32)
+    diff = src[None] - preds
+    costs = _sum_i32(diff * diff, (2, 3))
+    best = costs.argmin(dim=0).to(torch.int32)
+    return best, preds, costs
 
 
 # --- gathers with the JAX index rule -----------------------------------------------
@@ -594,6 +641,146 @@ def mc_block_batch_j(ref_padded, xs, ys, mvs, w: int, h: int,
     if final_bits > 0:
         res = (res + (1 << (final_bits - 1))) >> final_bits
     return res.clamp(0, (1 << bd) - 1)
+
+
+# --- the analysis entry steps -------------------------------------------------------
+# (twins of the JAX package's intra_analysis_step, inter_core_step and
+# inter_core_subpel_step: the per-block compute core as one batched step,
+# the quantizer through ``quantize`` and so through csrc/quant.cu on the
+# card. int32 results, as the JAX steps return them.)
+
+def _dct_loop(srcs, pred, size: int, qindex: int, bd: int):
+    """DCT_DCT forward transform of ``srcs - pred`` [B, size, size], the
+    static-qindex quantizer on its coded (at most 32x32) corner, inverse
+    transform, recon clip and SSE. Returns (qcoeff [B, n], eob [B],
+    sse [B]), all int32."""
+    coeffs = fwd_tx2d((srcs - pred).to(torch.int32), DCT_DCT, size, size)
+    b = coeffs.shape[0]
+    cw = min(32, size)
+    coded = coeffs[:, :cw, :cw].reshape(b, -1)
+    tx_size = MAX_TX_SIZE_OF_BLOCK[size]
+    qcoeff, dqcoeff, eob = quantize(
+        coded, get_scan(tx_size, DCT_DCT),
+        quant_host.make_quant_params(qindex, bit_depth=bd),
+        quant_host.tx_scale(tx_size), bd)
+    full = torch.zeros_like(coeffs)
+    full[:, :cw, :cw] = dqcoeff.reshape(b, cw, cw)
+    r = inv_tx2d(full, DCT_DCT, size, size, bd)
+    recon = (pred + r).clamp(0, (1 << bd) - 1)
+    return qcoeff, eob, _sum_i32((srcs - recon) ** 2, (1, 2))
+
+
+def intra_analysis_step(src, above, left, top_left, have_above, have_left,
+                        modes: tuple = (DC_PRED, V_PRED, H_PRED, SMOOTH_PRED,
+                                        PAETH_PRED),
+                        size: int = 16, qindex: int = 160, bd: int = 8):
+    """The flagship analysis step (twin of the JAX
+    ``intra_analysis_step``): batched intra mode decision + forward
+    transform + quantize + dequantize + inverse transform + recon
+    distortion over a batch of same-sized blocks. src [B, size, size]
+    int32, above/left [B, >= size] int32, top_left [B] int32, have_* [B]
+    bool. Returns (best mode index, qcoeff, eob, sse)."""
+    best, preds, _ = mode_decision_sse(modes, src, above, left, top_left,
+                                       have_above, have_left, size, size,
+                                       bd)
+    bsel = preds[best.long(), torch.arange(src.shape[0],
+                                           device=src.device)]
+    qcoeff, eob, sse = _dct_loop(src, bsel, size, qindex, bd)
+    return best, qcoeff, eob, sse
+
+
+def _grid_search(cur, ref_padded, pad: int, size: int, search_range: int,
+                 search_step: int):
+    """Full-pel SAD search of every size x size block of ``cur`` [H, W]
+    over the static offset grid, against ``ref_padded`` (``pad`` on each
+    side): the JAX steps slice the reference with
+    ``jax.lax.dynamic_slice``, which clamps its start, so a reference
+    whose border would make it clamp is refused instead. Returns (best
+    offset [B, 2] long, the first minimum; the blocks [B, size, size])."""
+    h, w = cur.shape
+    bh, bw = h // size, w // size
+    steps = range(-search_range, search_range + 1, search_step)
+    offsets = [(dy, dx) for dy in steps for dx in steps]
+    hr, wr = ref_padded.shape
+    if pad - search_range < 0 or pad + steps[-1] + h > hr \
+            or pad + steps[-1] + w > wr or h % size or w % size:
+        raise ValueError(f"grid search: reference {hr}x{wr} with border "
+                         f"{pad} cannot slice {h}x{w} at offsets up to "
+                         f"+-{search_range} (or the frame is not a "
+                         f"multiple of {size})")
+    sads = torch.stack([
+        _sum_i32((cur - ref_padded[pad + dy:pad + dy + h,
+                                  pad + dx:pad + dx + w]).abs()
+                .reshape(bh, size, bw, size), (1, 3))
+        for dy, dx in offsets])                              # [O, bh, bw]
+    best = sads.argmin(dim=0).reshape(-1)
+    offs = torch.tensor(offsets, dtype=torch.long, device=cur.device)
+    srcs = cur.reshape(bh, size, bw, size).permute(0, 2, 1, 3) \
+        .reshape(-1, size, size)
+    return offs[best], srcs
+
+
+def _block_origins(h: int, w: int, size: int, device):
+    """(ys, xs) [B] long: the top-left pixel of each block, raster order."""
+    bw = w // size
+    i = torch.arange((h // size) * bw, device=device)
+    return (i // bw) * size, (i % bw) * size
+
+
+def inter_core_step(cur, ref_padded, size: int = 16, search_range: int = 16,
+                    search_step: int = 2, qindex: int = 160, bd: int = 8):
+    """The inter compute core of one frame (twin of the JAX
+    ``inter_core_step``): full-pel SAD search over a static offset grid,
+    full-pel motion compensation, residual DCT + quantize + recon
+    distortion. cur [H, W] int32 (multiples of ``size``), ref_padded
+    [H + 2 * search_range, W + 2 * search_range] int32. Returns (best MV
+    [B, 2] in pels, qcoeff [B, n], eob [B], sse [B]), all int32."""
+    pad = search_range
+    mv, srcs = _grid_search(cur, ref_padded, pad, size, search_range,
+                            search_step)
+    ys, xs = _block_origins(*cur.shape, size, cur.device)
+    ar = torch.arange(size, device=cur.device)
+    rows = (ys + mv[:, 0] + pad)[:, None, None] + ar[None, :, None]
+    cols = (xs + mv[:, 1] + pad)[:, None, None] + ar[None, None, :]
+    pred = take2(ref_padded, rows, cols)
+    qcoeff, eob, sse = _dct_loop(srcs, pred, size, qindex, bd)
+    return mv.to(torch.int32), qcoeff, eob, sse
+
+
+def inter_core_subpel_step(cur, ref_mc_padded, size: int = 16,
+                           search_range: int = 16, search_step: int = 2,
+                           qindex: int = 160, bd: int = 8):
+    """The inter core with sub-pel refinement (twin of the JAX
+    ``inter_core_subpel_step``): the full-pel grid SAD of
+    ``inter_core_step``, then the half- and quarter-pel sweep (4
+    candidates each, a strictly lower SSE moves) through
+    ``mc_block_batch_j``, then the DCT loop. ref_mc_padded: the
+    reference with the MC border (``mc.REF_PAD`` on each side). Returns
+    (best MV [B, 2] in 1/8 pel, qcoeff, eob, sse), all int32."""
+    from svt_av1_tpu_torch.ops import mc as mch
+    mv, srcs = _grid_search(cur, ref_mc_padded, mch.REF_PAD, size,
+                            search_range, search_step)
+    mv8 = mv * 8
+    ys, xs = _block_origins(*cur.shape, size, cur.device)
+
+    def sse_of(cand):
+        pred = mc_block_batch_j(ref_mc_padded, xs, ys, cand, size, size,
+                                ss=0, bd=bd)
+        return _sum_i32((srcs - pred) ** 2, (1, 2))
+
+    best_cost = sse_of(mv8)
+    for step in (4, 2):                  # half then quarter pel
+        for oy, ox in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+            cand = mv8 + torch.tensor([oy * step, ox * step],
+                                      device=cur.device)
+            cost = sse_of(cand)
+            better = cost < best_cost
+            mv8 = torch.where(better[:, None], cand, mv8)
+            best_cost = torch.where(better, cost, best_cost)
+    pred = mc_block_batch_j(ref_mc_padded, xs, ys, mv8, size, size, ss=0,
+                            bd=bd)
+    qcoeff, eob, sse = _dct_loop(srcs, pred, size, qindex, bd)
+    return mv8.to(torch.int32), qcoeff, eob, sse
 
 
 # --- DLF -----------------------------------------------------------------------

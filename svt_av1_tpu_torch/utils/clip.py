@@ -1,6 +1,6 @@
 """Synthetic test clip: the content family of the JAX package's benchmark
 (``bench.make_clip``), copied so that the port needs nothing outside its
-package."""
+package, and a y4m writer for the CLI's input."""
 
 from __future__ import annotations
 
@@ -27,3 +27,16 @@ def make_clip(w=1920, h=1080, frames=9, seed=3):
                     0, 255).astype(np.uint8)
         out.append((y, u, v))
     return out
+
+
+def write_y4m(path, frames, fps_num: int = 30, fps_den: int = 1) -> None:
+    """Write 8-bit 4:2:0 (y, u, v) frames as a y4m file at
+    ``fps_num:fps_den`` (the CLI's input: ``utils.yuv.read_y4m``)."""
+    h, w = frames[0][0].shape
+    with open(path, "wb") as fh:
+        fh.write(f"YUV4MPEG2 W{w} H{h} F{fps_num}:{fps_den} Ip A1:1 "
+                 f"C420jpeg\n".encode())
+        for planes in frames:
+            fh.write(b"FRAME\n")
+            for p in planes:
+                fh.write(np.ascontiguousarray(p, np.uint8).tobytes())

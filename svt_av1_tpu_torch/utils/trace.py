@@ -1,6 +1,6 @@
 """Stage tracing: lightweight span timers over the encode pipeline.
 
-The TPU-native analogue of the reference's per-process timing hooks:
+The analogue of the reference's per-process timing hooks:
 stages register wall-clock spans into a process-global tracer that the
 CLI can dump as JSON (``--trace``) for pipeline balancing, mirroring
 what the reference's 15 thread-stage FIFO depths expose.
@@ -49,10 +49,12 @@ class Tracer:
                     "mean_ms": round(1e3 * v["total"] / v["count"], 3)}
                 for k, v in sorted(agg.items())}
 
-    def dump(self, path: str) -> None:
+    def dump(self, path: str, **extra) -> None:
+        """Write the summary, the spans and any ``extra`` entries as
+        JSON."""
         with open(path, "w") as f:
-            json.dump({"summary": self.summary(), "spans": self.spans},
-                      f, indent=1)
+            json.dump({"summary": self.summary(), "spans": self.spans,
+                       **extra}, f, indent=1)
 
 
 TRACER = Tracer()

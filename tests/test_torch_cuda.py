@@ -840,3 +840,106 @@ def test_checkpoint_moves_between_card_and_cpu(cuda):
         assert resumed.cfg.device == then
         got += packets(resumed, frames[6:]) + finish(resumed)
         assert got == want, (first, then)
+
+
+@pytest.fixture
+def cold_build(tmp_path, monkeypatch):
+    """Empty kernel and native-coder build directories for one test: the
+    libraries build again at first use, and the loaded ones are dropped
+    before and after."""
+    from svt_av1_tpu_torch import cuda_build, native
+    monkeypatch.setattr(cuda_build, "BUILD", tmp_path / "build" / "cuda")
+    monkeypatch.setattr(native, "_BUILD", tmp_path / "build" / "native")
+    dev._quant_lib.cache_clear()
+    native.lib.cache_clear()
+    yield tmp_path / "build"
+    dev._quant_lib.cache_clear()
+    native.lib.cache_clear()
+
+
+@pytest.mark.parametrize("parallel", [["--jobs", "2", "--intra-period", "1",
+                                       "--preset", "7"],
+                                      ["--nch", "2", "--preset", "5"]],
+                         ids=["jobs2", "nch2"])
+def test_cli_threads_on_card_from_a_cold_build_equal_cpu(cuda, cold_build,
+                                                         tmp_path,
+                                                         parallel):
+    """The encoder CLI on the card with two encoder threads (parallel
+    GOPs, or two channels) that reach the kernel's first use together on
+    an empty build directory: one library is built, the kernel runs, and
+    the streams equal the CPU's."""
+    from svt_av1_tpu_torch.app import cli
+    from svt_av1_tpu_torch.utils.clip import make_clip, write_y4m
+    ins = [tmp_path / "a.y4m", tmp_path / "b.y4m"]
+    for i, path in enumerate(ins):
+        write_y4m(path, make_clip(w=448, h=128, frames=4, seed=3 + i))
+    n = 2 if "--nch" in parallel else 1
+    out = {}
+    for device in ("cuda", "cpu"):
+        outs = [tmp_path / f"{device}{i}.ivf" for i in range(n)]
+        before = sum(dev.LAUNCHES.values())
+        assert cli.main(["-i", ",".join(map(str, ins[:n])), "-b",
+                         ",".join(map(str, outs)), "--no-stats",
+                         "--device", device, *parallel]) == 0
+        if device == "cuda":
+            assert sum(dev.LAUNCHES.values()) > before
+        out[device] = [p.read_bytes() for p in outs]
+    assert out["cuda"] == out["cpu"]
+    built = sorted(p.name for p in (cold_build / "cuda").iterdir())
+    assert len(built) == 2 and built[0] == ".lock", built
+    assert built[1].startswith("libquant.") and built[1].endswith(".so")
+
+
+def test_entry_steps_on_card_equal_cpu(cuda):
+    """entry() and the three analysis steps on the card equal their CPU
+    runs; each launches the kernel's quantize-only mode and never its
+    plain version."""
+    from svt_av1_tpu_torch.entry import entry
+    from svt_av1_tpu_torch.ops import mc as mch
+    plain = []
+    real_plain = dev.quantize_qv_plain
+
+    def spy(*a, **k):
+        plain.append(1)
+        return real_plain(*a, **k)
+
+    def run(fn, *args, **kw):
+        """(card results, CPU results) of ``fn``; checks the launches."""
+        before = dev.LAUNCHES["quantize_qv"]
+        dev.quantize_qv_plain = spy
+        try:
+            got = fn(*(torch.as_tensor(a, device=cuda) for a in args), **kw)
+            torch.cuda.synchronize()
+        finally:
+            dev.quantize_qv_plain = real_plain
+        assert dev.LAUNCHES["quantize_qv"] > before and not plain
+        want = fn(*(torch.as_tensor(a) for a in args), **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    run(fn, *(a.cpu() for a in args))
+    rng = np.random.default_rng(5)
+    for size, qindex, bd in ((16, 160, 8), (32, 0, 10), (64, 255, 8)):
+        b, hi = 40, 1 << bd
+        ins = (rng.integers(0, hi, (b, size, size)),
+               rng.integers(0, hi, (b, 2 * size)),
+               rng.integers(0, hi, (b, 2 * size)), rng.integers(0, hi, b),
+               rng.integers(0, 2, b).astype(bool),
+               rng.integers(0, 2, b).astype(bool))
+        run(dev.intra_analysis_step,
+            *(a.astype(np.int32) if a.dtype != bool else a for a in ins),
+            size=size, qindex=qindex, bd=bd)
+    cur, ref = _luma_pair(448, 128)
+    run(dev.inter_core_step, cur, np.pad(ref, 16, mode="edge"), size=16,
+        search_range=16)
+    run(dev.inter_core_subpel_step, cur,
+        mch.pad_reference(ref).astype(np.int32), size=16, search_range=16)
+
+
+def _luma_pair(w, h):
+    """Luma of frames 1 and 0 of the synthetic clip, int32."""
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    f0, f1 = make_clip(w=w, h=h, frames=2, seed=3)
+    return f1[0].astype(np.int32), f0[0].astype(np.int32)

@@ -3,11 +3,14 @@
 The port imports nothing of JAX and nothing of the JAX package (an
 all-intra, an inter encode and one with the rate and analysis tools load
 every module of the port's main path), keeps its own copies of the
-constant tables (equal to the JAX package's), carries a JAX config across,
-refuses the tool of a later slice (multi-device sharding) and accepts every
-other, and never falls back to the CPU when it was asked for the card.
+constant tables (equal to the JAX package's), has a counterpart of every
+module of the JAX package but those ROADMAP.md lists as not yet ported,
+carries a JAX config across, refuses the tool of a later slice
+(multi-device sharding) and accepts every other, and never falls back to
+the CPU when it was asked for the card.
 """
 
+import ast
 import dataclasses
 import os
 import re
@@ -25,6 +28,17 @@ from svt_av1_tpu_torch.convert import TABLES, config_from_jax, load_tables
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "svt_av1_tpu_torch"
+JAX_SRC = REPO / "svt_av1_tpu"
+# what the port does not have yet, as ROADMAP.md's "Not yet ported" list
+# names it: JAX package modules, and functions (module::name) of modules
+# the port has
+NOT_PORTED = {
+    "parallel/tiles.py", "utils/natural.py",
+    "ops/device.py::cdef_find_dir_batch", "ops/device.py::cdef_filter_blocks",
+    "ops/device.py::wiener_filter_batch", "ops/device.py::sgr_filter_batch",
+    "ops/device_inter.py::ref_candidates_dev",
+    "ops/device_inter.py::chroma_multi_dev",
+    "ops/device_inter.py::flip_rd_dev", "ops/device_tile.py::make_tile_body"}
 # the JAX package by name; svt_av1_tpu_torch shares its prefix
 JAX_PKG = re.compile(r"\bsvt_av1_tpu\b(?!_torch)")
 IMPORT = re.compile(r"^\s*(?:from\s+(\S+)\s+import|import\s+(\S+))")
@@ -96,6 +110,47 @@ def test_port_runs_without_jax_modules():
     loaded = [m for m in out if m.split(".")[0] == "jax"
               or JAX_PKG.match(m)]
     assert not loaded, loaded
+
+
+def _top_level_defs(path: Path) -> set:
+    return {n.name for n in ast.parse(path.read_text()).body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Each module of the JAX package has its namesake in the port, or
+    stands in NOT_PORTED (a package's ``__init__.py`` goes with its
+    modules); each function NOT_PORTED names is the JAX package's and not
+    the port's."""
+    modules = {f.relative_to(JAX_SRC).as_posix()
+               for f in JAX_SRC.rglob("*.py")}
+    not_ported = {e for e in NOT_PORTED if "::" not in e}
+    missing = []
+    for rel in sorted(modules):
+        pkg_mods = {m for m in modules if m != rel
+                    and os.path.dirname(m) == os.path.dirname(rel)}
+        if rel.endswith("__init__.py") and pkg_mods \
+                and pkg_mods <= not_ported:
+            assert not (PORT / rel).exists(), rel
+        elif rel in not_ported:
+            assert not (PORT / rel).exists(), rel
+        elif not (PORT / rel).exists():
+            missing.append(rel)
+    assert not missing, missing
+    assert not_ported <= modules
+    for entry in NOT_PORTED - not_ported:
+        rel, name = entry.split("::")
+        assert name in _top_level_defs(JAX_SRC / rel), entry
+        assert name not in _top_level_defs(PORT / rel), entry
+
+
+def test_not_ported_list_equals_the_roadmaps():
+    """ROADMAP.md's "Not yet ported" section lists NOT_PORTED, one
+    backticked ``svt_av1_tpu/...`` entry at the head of each bullet."""
+    text = (REPO / "ROADMAP.md").read_text()
+    section = text.split("\n### Not yet ported\n", 1)[1].split("\n#", 1)[0]
+    listed = set(re.findall(r"^- `svt_av1_tpu/([^`]+)`", section, re.M))
+    assert listed == NOT_PORTED
 
 
 @pytest.mark.parametrize("rel", TABLES)
