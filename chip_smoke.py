@@ -102,17 +102,30 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    (``api.eb_*``) on the one-frame clip, whose packets as IVF must equal
    ``GOLDEN_*``, and the checker over that key frame; the warmup tool at
    1080p for 2 frames;
-13. each mode and row length timed at the heaviest shape the seven
-   encodes and the two phases above gave it; one whole fused key frame
+13. ``[multichip]``, the multi-device slice (``parallel/tiles.py``) on
+   ``["cuda:0"] * 4`` at 2048x1080 (DCI 2K: preset 5's 4 tile columns
+   are equal there): the tile-sharded key frame (8-px leaves, one tile
+   program per device, the halo ring, the summed stats), whose TU must
+   equal the JAX package's (``GOLDEN_MC_KEY_*``) with every tile program
+   launching the kernel; 3 frames (key, then a compound B) through
+   ``encode_ivf`` with every shape group fanned out over 4 column strips,
+   whose stream must equal the JAX package's (``GOLDEN_MC_INTER_*``) with
+   every strip launching the kernel; the distributed DLF on the key
+   frame's recon, equal to ``dlf_search_apply_dev``
+   on the card; the plain quantizer never runs. Seconds per check, per
+   tile program and per inter frame (beside ``[inter]``'s unsharded
+   s/frame), launches per tile and per strip;
+14. each mode and row length timed at the heaviest shape the seven
+   encodes and the three phases above gave it; one whole fused key frame
    program (the all-intra clip's key frame, replayed under
    torch.profiler for its wall, device busy time and device operations),
    beside it one wave of the per-wave path through
    ``decide_block_batch_dev``, and one (step, shape) group of the
    directional key frame replayed under torch.profiler; the seconds each
    phase took (``[time]``);
-14. a ``{"kernels": [...]}`` line, one entry per mode and row length
-   (``launches``: the sum over the seven encodes, ``[entry]`` and
-   ``[app]``; ``launches_by_path``: each one's own count, and the RA
+15. a ``{"kernels": [...]}`` line, one entry per mode and row length
+   (``launches``: the sum over the seven encodes, ``[entry]``, ``[app]``
+   and ``[multichip]``; ``launches_by_path``: each one's own count, and the RA
    encode's inside its inter frames), the card's line, and last the
    device line.
 
@@ -186,6 +199,30 @@ GOLDEN_RC_SHA256 = \
     "2a987a17a54bd986d71f0eb323d48bf21532fd75dd1a1d0d8f1227ecfb97a1a9"
 GOLDEN_RC_BYTES = 292529
 RC_TARGET_BPS, RC_LOOKAHEAD, RC_GRAIN = 6_000_000, 8, 10
+# [multichip]: DCI 2K, where preset 5's 4 tile columns are 4 equal tiles
+# of 8 superblocks (at 1920 wide they are 8, 8, 8 and 6, which the tile
+# program refuses), on 4 shards of the one card
+MC_WIDTH, MC_HEIGHT, MC_DEVICES = 2048, 1080, 4
+# 8-px leaves: at 1080 rows the bottom row of 16-px leaves crosses the
+# frame edge and splits to 8 px, so 16 px gives no uniform leaf map
+MC_LEAF = 8
+# the inter planes are bucket-padded to 2560 columns (common.bucket_dims),
+# which 4 superblock-aligned strips of 640 tile
+MC_STRIP_W = 640
+MC_QINDEX = 160
+# the JAX package's TU of the sharded key frame: svt_av1_tpu.pipeline.
+# wavefront.encode_keyframe_wavefront with backend="host" on
+# make_clip(2048, 1080, frames=1, seed=3), preset 5, qp 40, intra_period 0
+# (4 tile columns by width) with fixed_partition_size=8
+GOLDEN_MC_KEY_SHA256 = \
+    "7378bd471f57ce52ca40175a7b921dca5ae5774e9f784c97d1a7d3e34287e701"
+GOLDEN_MC_KEY_BYTES = 33456
+# the JAX package's stream of the strip-sharded inter check: encode_ivf(
+# backend="host") on make_clip(2048, 1080, frames=3, seed=3), preset 5,
+# qp 40, intra_period -1, hierarchical_levels 1 (frame 1 a compound B)
+GOLDEN_MC_INTER_SHA256 = \
+    "7627ced4ddaa8244a900f8e7cddcd44e5b84440a34ad57052d1607fdf47be3f5"
+GOLDEN_MC_INTER_BYTES = 423291
 TOOL_SPANS = ("keyframe", "intra_partition_dp", "waves", "intra_tiles_fused",
               "inter_frame", "dlf", "entropy", "tpl", "denoise", "grain")
 # synthetic large-batch checks at the most rows a 1080p shape group can
@@ -575,6 +612,19 @@ def _keyframe_spies(keys):
     return spies
 
 
+def _run_patched(patches, fn):
+    """fn() with each (object, attribute, wrapper factory) of ``patches``
+    patched in; the originals come back however fn ends."""
+    saved = [(obj, nm, getattr(obj, nm)) for obj, nm, _ in patches]
+    for (obj, nm, wrap), (_, _, orig) in zip(patches, saved):
+        setattr(obj, nm, wrap(orig))
+    try:
+        return fn()
+    finally:
+        for obj, nm, orig in saved:
+            setattr(obj, nm, orig)
+
+
 def _encode_counted(torch, frames, cfg, spies=()):
     """encode_ivf on the card with the launch counters and spans set to 0
     just before and read just after; the plain trim and rate are counted
@@ -599,22 +649,19 @@ def _encode_counted(torch, frames, cfg, spies=()):
     patches = [(tmd, nm, lambda fn, nm=nm: counted(nm, fn))
                for nm in ("rdoq_trim_j", "_rate_cdf_j")] + list(spies) \
         + list(_keyframe_spies(keys))
-    saved = [(obj, nm, getattr(obj, nm)) for obj, nm, _ in patches]
-    for (obj, nm, wrap), (_, _, fn) in zip(patches, saved):
-        setattr(obj, nm, wrap(fn))
-    TRACER.enabled = True
-    TRACER.reset()
-    dev.LAUNCHES.clear()
-    dev.LAUNCH_SHAPES.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
+
+    def run():
+        TRACER.enabled = True
+        TRACER.reset()
+        dev.LAUNCHES.clear()
+        dev.LAUNCH_SHAPES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         ivf = encode_ivf(frames, cfg)
         torch.cuda.synchronize()
-    finally:
-        for obj, nm, fn in saved:
-            setattr(obj, nm, fn)
-    dt = time.perf_counter() - t0
+        return ivf, time.perf_counter() - t0
+
+    ivf, dt = _run_patched(patches, run)
     TRACER.enabled = False
     return (ivf, dt, dict(dev.LAUNCHES), dict(dev.LAUNCH_SHAPES),
             dict(plain_calls), TRACER, keys)
@@ -1650,6 +1697,175 @@ def phase_app(torch):
             "warmup_s": warm_s}, shapes
 
 
+def _plain_quantizer_spies(plain):
+    """Spies that count, into ``plain``, every call of the quantizer's
+    plain versions (which must never run on the card)."""
+    from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.ops import device_md as tmd
+
+    def counted(nm):
+        def wrap(fn):
+            def call(*a, **k):
+                plain[nm] += 1
+                return fn(*a, **k)
+            return call
+        return wrap
+
+    return [(tmd, nm, counted(nm)) for nm in
+            ("quant_stage_plain", "rdoq_trim_j", "_rate_cdf_j")] \
+        + [(dev, "quantize_qv_plain", counted("quantize_qv_plain"))]
+
+
+def phase_multichip(torch, inter_s_per_frame: float):
+    """The multi-device slice on ``["cuda:0"] * 4``: the tile-sharded key
+    frame (sha256 against ``GOLDEN_MC_KEY_*``, halo, stats, each tile
+    program's launches), the strip-sharded inter stream through
+    ``encode_ivf`` (against ``GOLDEN_MC_INTER_*``, each strip's
+    launches), and the distributed DLF on the key frame's recon
+    against ``dlf_search_apply_dev`` on the card. The plain quantizer
+    never runs. Returns (result, {(mode, B, n, log_scale): launches})."""
+    import dataclasses
+
+    import numpy as np
+
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.ops.device import dlf_search_apply_dev
+    from svt_av1_tpu_torch.parallel import tiles
+    from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    from svt_av1_tpu_torch.utils.trace import TRACER
+    devices = ["cuda:0"] * MC_DEVICES
+    frames = make_clip(w=MC_WIDTH, h=MC_HEIGHT, frames=3, seed=3)
+    plain = collections.Counter()
+    spies = _plain_quantizer_spies(plain)
+    shapes = collections.Counter()
+    res = {"devices": devices}
+
+    # --- 1: tile-sharded key frame
+    kcfg = dataclasses.replace(preset_config(
+        width=MC_WIDTH, height=MC_HEIGHT, qp=QP, preset=PRESET,
+        intra_period=0, device="cuda"), fixed_partition_size=MC_LEAF)
+    report = {}
+    dev.LAUNCHES.clear()
+    dev.LAUNCH_SHAPES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tu, halo_ok, stats = _run_patched(
+        spies, lambda: tiles.encode_keyframe_tiles_sharded(
+            *frames[0], kcfg, devices, report=report))
+    torch.cuda.synchronize()
+    key_s = time.perf_counter() - t0
+    shapes.update(dev.LAUNCH_SHAPES)
+    sha = hashlib.sha256(tu).hexdigest()
+    print(f"[multichip] tile-sharded key frame {MC_WIDTH}x{MC_HEIGHT} "
+          f"(preset {PRESET}, qp {QP}, {MC_LEAF}-px leaves) on {devices}: "
+          f"{key_s:.2f} s, {len(tu)} bytes, sha256 {sha}; halo_ok "
+          f"{halo_ok}, stats {stats}", flush=True)
+    for i, t in enumerate(report["tiles"]):
+        print(f"[multichip] tile {i} on {t['device']}: program "
+              f"{t['seconds']:.3f} s, kernel launches {t['launches']}",
+              flush=True)
+    if sha != GOLDEN_MC_KEY_SHA256 or len(tu) != GOLDEN_MC_KEY_BYTES:
+        raise SystemExit(f"sharded key frame differs from the JAX golden: "
+                         f"{len(tu)} bytes sha256 {sha}")
+    if not halo_ok or stats <= 0 or report["injected"] != MC_DEVICES:
+        raise SystemExit(f"sharded key frame: halo_ok {halo_ok}, stats "
+                         f"{stats}, injected {report['injected']}")
+    if not all(t["launches"].get("quant_stage_rdoq", 0) > 0
+               for t in report["tiles"]):
+        raise SystemExit("a tile program launched no kernel")
+    res["keyframe"] = {"seconds": key_s, "bytes": len(tu), "sha256": sha,
+                       "halo_ok": halo_ok, "stats": stats,
+                       "tiles": report["tiles"], "recon": report["recon"]}
+
+    # --- 2: strip-sharded inter shape groups
+    icfg = preset_config(width=MC_WIDTH, height=MC_HEIGHT, qp=QP,
+                         preset=PRESET, intra_period=-1,
+                         hierarchical_levels=1, device="cuda")
+    report = {}
+    issue = tiles.make_sharded_shape_group_issue(devices, MC_STRIP_W,
+                                                 report=report)
+    TRACER.enabled = True
+    TRACER.reset()
+    dev.LAUNCHES.clear()
+    dev.LAUNCH_SHAPES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf = _run_patched(spies, lambda: encode_ivf(frames, icfg,
+                                                 shape_group_issue=issue))
+    torch.cuda.synchronize()
+    inter_wall = time.perf_counter() - t0
+    TRACER.enabled = False
+    shapes.update(dev.LAUNCH_SHAPES)
+    sha = hashlib.sha256(ivf).hexdigest()
+    frame_s = [sp["dur"] for sp in TRACER.spans
+               if sp["stage"] == "inter_frame"]
+    kf_s = sum(sp["dur"] for sp in TRACER.spans if sp["stage"] == "keyframe")
+    print(f"[multichip] strip-sharded inter: 3 frames (key, then a "
+          f"hier-1 mini-GOP) in {inter_wall:.2f} s, {len(ivf)} bytes, "
+          f"sha256 {sha}; key frame {kf_s:.2f} s; inter frames "
+          f"{(inter_wall - kf_s) / 2:.3f} s/frame over {MC_DEVICES} strips "
+          f"of {MC_STRIP_W} (compute {frame_s}) beside [inter]'s unsharded "
+          f"{inter_s_per_frame:.3f} s/frame at 1920x1080", flush=True)
+    for i, st in enumerate(report["strips"]):
+        print(f"[multichip] strip {i} on {st['device']}: {st['groups']} "
+              f"shape groups, {st['blocks']} blocks, kernel launches "
+              f"{dict(st['launches'])}", flush=True)
+    _check_stream("strip-sharded inter", ivf, sha, GOLDEN_MC_INTER_BYTES,
+                  GOLDEN_MC_INTER_SHA256)
+    if not all(st["launches"].get("quant_stage_rdoq", 0) > 0
+               for st in report["strips"]):
+        raise SystemExit("a strip's shape groups launched no kernel")
+    res["inter"] = {"seconds": inter_wall, "keyframe_s": kf_s,
+                    "inter_s_per_frame": (inter_wall - kf_s) / 2,
+                    "inter_frame_span_s": frame_s, "bytes": len(ivf),
+                    "sha256": sha,
+                    "strips": [dict(st, launches=dict(st["launches"]))
+                               for st in report["strips"]]}
+
+    # --- 3: distributed DLF on the key frame's recon
+    rec = [np.asarray(p.cpu() if hasattr(p, "cpu") else p)
+           for p in res["keyframe"].pop("recon")]
+    mi_rows, mi_cols = MC_HEIGHT // 4, MC_WIDTH // 4
+    step = MC_LEAF // 4
+    leaf_sizes = {(r, c): MC_LEAF for r in range(0, mi_rows, step)
+                  for c in range(0, mi_cols, step)}
+    src = [p.astype(np.int64) for p in frames[0]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    planes, levels = tiles.dlf_search_apply_sharded(
+        rec, src, leaf_sizes, mi_rows, mi_cols, MC_QINDEX, 8, devices)
+    torch.cuda.synchronize()
+    dlf_s = time.perf_counter() - t0
+    single = [p.copy() for p in rec]
+    t0 = time.perf_counter()
+    want = dlf_search_apply_dev(single, src, leaf_sizes, mi_rows, mi_cols,
+                                MC_QINDEX, 8, device="cuda")
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    same = levels == want and all(np.array_equal(a, b)
+                                  for a, b in zip(planes, single))
+    print(f"[multichip] distributed DLF on the key frame's recon "
+          f"(qindex {MC_QINDEX}): levels {levels}, "
+          f"{MC_DEVICES} strips {dlf_s:.3f} s, single-device "
+          f"dlf_search_apply_dev {single_s:.3f} s, equal {same}",
+          flush=True)
+    if not same:
+        raise SystemExit(f"sharded DLF != dlf_search_apply_dev: {levels} "
+                         f"vs {want}")
+    if plain:
+        raise SystemExit(f"the plain quantizer ran on the card: "
+                         f"{dict(plain)}")
+    print(f"[multichip] streams equal the JAX goldens, the DLF the "
+          f"single-device filter; plain quantizer calls 0", flush=True)
+    res["dlf"] = {"levels": levels, "seconds": dlf_s,
+                  "single_device_s": single_s}
+    res["checks_s"] = {"keyframe": key_s, "inter": inter_wall,
+                       "dlf": dlf_s}
+    return res, shapes
+
+
 def phase_postfilter_profile(torch, replay) -> dict:
     """One inter frame's post-filters replayed from clones of its
     deblocked planes: CDEF + LR together (``postfilter.run_postfilters``),
@@ -1986,6 +2202,8 @@ def main() -> int:
     rc_res, rc_shapes = timed("rc", phase_rc, torch)
     entry_res, entry_shapes = timed("entry", phase_entry, torch)
     app_res, app_shapes = timed("app", phase_app, torch)
+    mc_res, mc_shapes = timed("multichip", phase_multichip, torch,
+                              inter_res["inter_s_per_frame"])
     by_path = {"all_intra": _by_mode_n(shapes),
                "random_access": _by_mode_n(inter_shapes),
                "ra_inter_frames": _by_mode_n(inter_frame_shapes),
@@ -1995,7 +2213,8 @@ def main() -> int:
                "aq": _by_mode_n(aq_shapes),
                "rc": _by_mode_n(rc_shapes),
                "entry": _by_mode_n(entry_shapes),
-               "app": _by_mode_n(app_shapes)}
+               "app": _by_mode_n(app_shapes),
+               "multichip": _by_mode_n(mc_shapes)}
     shapes = collections.Counter(shapes)
     shapes.update(inter_shapes)
     shapes.update(dir_shapes)
@@ -2005,6 +2224,7 @@ def main() -> int:
     shapes.update(rc_shapes)
     shapes.update(entry_shapes)
     shapes.update(app_shapes)
+    shapes.update(mc_shapes)
     kernels = timed("kernels", kernel_entries, torch, by_path, shapes,
                     env["int32_ops_per_s"])
     group_prof = timed("inter-profile", phase_group_profile, torch, biggest)
@@ -2026,6 +2246,7 @@ def main() -> int:
                    "directional": dir_res, "postfilter": pf_res,
                    "search": search_res, "aq": aq_res, "rc": rc_res,
                    "entry": entry_res, "app": app_res,
+                   "multichip": mc_res,
                    "kernels": kernels, "shape_group_profile": group_prof,
                    "keyframe_program_profile": key_prof,
                    "wave_profile": prof,

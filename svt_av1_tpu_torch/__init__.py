@@ -12,7 +12,10 @@ range coder) are its own copies.
 - ``pipeline/``: partition RD (``rd``), the wavefront keyframe encoder and
   the streaming ``Encoder`` / ``encode_ivf``.
 - ``config.EncoderConfig``: the JAX package's fields with ``device`` in
-  place of ``backend``; tools of later slices raise NotImplementedError.
+  place of ``backend``.
+- ``parallel/tiles.py``: the multi-device layer over a list of torch
+  devices (tile-sharded key frames, strip-sharded shape groups, the
+  distributed DLF).
 - The entry points: ``app/`` (``python -m svt_av1_tpu_torch.app``, the
   decoder CLI, the warmup tool), ``api`` (the ``EbApi.h`` lifecycle),
   ``entry`` (the analysis step); and the port's own verification, the

@@ -14,8 +14,9 @@ of the directional presets), low-delay P and hierarchical-B random access
 interpolation-filter and tx-type searches), the in-loop post-filters,
 variance and TPL adaptive quantization, VBR rate control with lookahead,
 film grain (flat and auto-estimated), source denoising and SATD
-partition scoring. ``__post_init__`` raises ``NotImplementedError`` for
-``mesh_shape``: multi-device sharding comes with a later slice.
+partition scoring. ``mesh_shape`` is accepted and read by nothing, as in
+the JAX package: the sharded functions of ``parallel/tiles.py`` take
+their devices as an argument.
 """
 
 from __future__ import annotations
@@ -187,7 +188,6 @@ class EncoderConfig:
             raise ValueError("only 64x64 superblocks supported")
         if self.device.split(":")[0] not in ("cuda", "cpu"):
             raise ValueError("device must be 'cuda[:N]' or 'cpu'")
-        _reject_later_slices(self)
 
     # geometry helpers ---------------------------------------------------------
     @property
@@ -218,11 +218,3 @@ class EncoderConfig:
             return self.qindex_override
         return min(255, self.qp * 4)
 
-
-def _reject_later_slices(cfg: EncoderConfig) -> None:
-    """Raise NotImplementedError for a tool the port does not run yet:
-    the multi-device tile sharding (``mesh_shape``)."""
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError(
-            "multi-device tile sharding: not ported yet (comes with the "
-            "multi-device slice; see ROADMAP.md Queue 1)")

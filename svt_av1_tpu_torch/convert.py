@@ -29,8 +29,8 @@ TABLES = ("entropy/data/default_cdfs.npz", "ops/data/txfm_networks.npz",
 def config_from_jax(d: dict, device: str = "cuda") -> EncoderConfig:
     """The port's config from ``dataclasses.asdict`` of a JAX
     ``EncoderConfig``: every field carries over; ``backend`` (host or
-    device, both the JAX package's own engines) becomes ``device``.
-    Raises NotImplementedError for a tool of a later slice."""
+    device, both the JAX package's own engines) becomes ``device``;
+    ``mesh_shape`` carries over unread, as the JAX package leaves it."""
     kw = dict(d)
     kw.pop("backend", None)
     return EncoderConfig(device=device, **kw)

@@ -1093,3 +1093,182 @@ def dlf_search_apply_dev(recon_planes, src_planes, leaf_sizes, mi_rows,
     if ly == 0:
         return (0, 0, 0, 0)
     return (ly, ly, luv, luv)
+
+
+# --- CDEF and loop-restoration block twins ------------------------------------------
+# (the JAX package's batched CDEF and LR twins over 8x8 blocks and stripe
+# windows; the encoder's frame programs are ops/device_cdef.py and
+# ops/device_lr.py. Integer arithmetic in int64; the direction search's
+# projection is an fp64 product, exact for its 0/1 weights and 11-bit
+# pixels.)
+
+def cdef_find_dir_batch(blocks, coeff_shift: int):
+    """Directions + variances for [B, 8, 8] blocks (device twin of
+    ops.cdef.find_dir): (dirs [B] int32, vars [B] int64)."""
+    from svt_av1_tpu_torch.ops.device_cdef import _find_dir_dense
+    dirs, var = _find_dir_dense(blocks.to(torch.int32)[None], coeff_shift)
+    return dirs[0].to(torch.int32), var[0]
+
+
+def _cdef_constrain(diff, threshold, damping: int):
+    """The CDEF constrain with per-block thresholds [B, 1, 1] (the shift
+    from the exact floor(log2(threshold)), threshold 0 -> 0)."""
+    from svt_av1_tpu_torch.ops.device_cdef import _msb_clip
+    adiff = diff.abs()
+    shift = (damping - _msb_clip(threshold.clamp_min(1), 30)).clamp_min(0)
+    v = torch.minimum(adiff, (threshold - (adiff >> shift)).clamp_min(0))
+    return torch.where(threshold == 0, 0, torch.sign(diff) * v)
+
+
+def cdef_filter_blocks(windows, pri, sec, dirs, pri_damping: int,
+                       sec_damping: int, coeff_shift: int):
+    """Filter [B, 8+6, 8+6] padded windows (3 px CDEF_VERY_LARGE borders)
+    with per-block strengths pri/sec [B] and directions [B] (device twin
+    of ops.cdef.filter_block for 8x8 blocks). Returns [B, 8, 8] int64."""
+    from svt_av1_tpu_torch.ops.cdef import (CDEF_VERY_LARGE, DIR_OFFSETS,
+                                            PRI_TAPS, SEC_TAPS)
+    b, _, ww = windows.shape
+    device = windows.device
+    w = windows.to(torch.int64)
+    x = w[:, 3:11, 3:11]
+    offs = const(np.array(DIR_OFFSETS, dtype=np.int64), device)  # [8,2,2]
+    pri_t = const(np.array(PRI_TAPS, dtype=np.int64), device)
+    sec_t = const(np.array(SEC_TAPS, dtype=np.int64), device)
+    tap_idx = (pri.long() >> coeff_shift) & 1
+    ar8 = torch.arange(8, device=device)
+    flat = w.reshape(b, -1)
+
+    def gather(dy, dx):
+        """Per-block shifted 8x8 window: dy/dx [B]."""
+        iy = 3 + dy[:, None, None] + ar8[None, :, None]
+        ix = 3 + dx[:, None, None] + ar8[None, None, :]
+        return flat.gather(1, (iy * ww + ix).reshape(b, -1)).reshape(b, 8, 8)
+
+    dirs = dirs.long()
+    d_off = offs[dirs]                                  # [B, 2, 2]
+    pri_b = pri.long()[:, None, None]
+    sec_b = sec.long()[:, None, None]
+    s = torch.zeros((b, 8, 8), dtype=torch.int64, device=device)
+    mx = mn = x
+    for k in range(2):
+        ptap = pri_t[tap_idx, k][:, None, None]
+        stap = sec_t[tap_idx, k][:, None, None]
+        for sgn in (1, -1):
+            p = gather(sgn * d_off[:, k, 0], sgn * d_off[:, k, 1])
+            s = s + ptap * _cdef_constrain(p - x, pri_b, pri_damping)
+            mx = torch.maximum(mx, torch.where(p == CDEF_VERY_LARGE, mx, p))
+            mn = torch.minimum(mn, p)
+            for od in (2, 6):
+                d2 = offs[(dirs + od) & 7]
+                q = gather(sgn * d2[:, k, 0], sgn * d2[:, k, 1])
+                s = s + stap * _cdef_constrain(q - x, sec_b, sec_damping)
+                mx = torch.maximum(mx, torch.where(q == CDEF_VERY_LARGE,
+                                                   mx, q))
+                mn = torch.minimum(mn, q)
+    out = x + ((8 + s - (s < 0).long()) >> 4)
+    return torch.minimum(torch.maximum(out, mn), mx)
+
+
+def _round2t(x, n: int):
+    return x if n == 0 else (x + (1 << (n - 1))) >> n
+
+
+def wiener_filter_batch(src_ext, taps_v, taps_h, bd: int = 8):
+    """[B, h+6, w+6] windows -> [B, h, w] int64 (twin of
+    restoration.wiener_filter; taps are python triples)."""
+    from svt_av1_tpu_torch.ops import restoration as rst
+    fv = rst.wiener_taps7(taps_v)
+    fh = rst.wiener_taps7(taps_h)
+    r0 = 3 if bd < 12 else 5
+    r1 = 2 * rst.WIENER_FILT_PREC_BITS - r0
+    bn, h, w = src_ext.shape[0], src_ext.shape[1] - 6, src_ext.shape[2] - 6
+    s = src_ext.to(torch.int64)
+    hsum = torch.full((bn, h + 6, w), 1 << (bd + rst.WIENER_FILT_PREC_BITS
+                                            - 1),
+                      dtype=torch.int64, device=s.device)
+    for k in range(7):
+        hsum = hsum + int(fh[k]) * s[:, :, k:k + w]
+    mid = _round2t(hsum, r0).clamp(
+        0, (1 << (bd + 1 + rst.WIENER_FILT_PREC_BITS - r0)) - 1)
+    vsum = torch.zeros((bn, h, w), dtype=torch.int64, device=s.device)
+    for k in range(7):
+        vsum = vsum + int(fv[k]) * mid[:, k:k + h]
+    vsum = vsum - (1 << (bd + r1 - 1))
+    return _round2t(vsum, r1).clamp(0, (1 << bd) - 1)
+
+
+def _winsum_t(x, r: int):
+    """Batched full-window sums [B, H, W] -> [B, H-2r, W-2r]."""
+    n = 2 * r + 1
+    v = torch.cumsum(x, dim=1)
+    v = torch.cat([v[:, n - 1:n], v[:, n:] - v[:, :-n]], dim=1)
+    hs = torch.cumsum(v, dim=2)
+    return torch.cat([hs[:, :, n - 1:n], hs[:, :, n:] - hs[:, :, :-n]],
+                     dim=2)
+
+
+def _sgr_ab_t(dgd_ext, r: int, s: int, h: int, w: int, bd: int):
+    from svt_av1_tpu_torch.ops import restoration as rst
+    d = dgd_ext.to(torch.int64)
+    i0 = 2 - r
+    a_ = _winsum_t(d * d, r)[:, i0:i0 + h + 2, i0:i0 + w + 2]
+    b_ = _winsum_t(d, r)[:, i0:i0 + h + 2, i0:i0 + w + 2]
+    n = (2 * r + 1) * (2 * r + 1)
+    a = _round2t(a_, 2 * (bd - 8))
+    b = _round2t(b_, bd - 8)
+    p = (a * n - b * b).clamp_min(0)
+    z = _round2t(p * s, rst.SGRPROJ_MTABLE_BITS)
+    a2 = const(rst._X_BY_XPLUS1.astype(np.int64), d.device)[
+        z.clamp_max(255)]
+    b2 = _round2t((256 - a2) * b_ * int(rst._ONE_BY_X[n - 1]),
+                  rst.SGRPROJ_RECIP_BITS)
+    return a2, b2
+
+
+def sgr_filter_batch(dgd_ext, ep: int, xqd, bd: int = 8):
+    """[B, h+6, w+6] -> [B, h, w] int64 (twin of restoration.sgr_filter;
+    ep/xqd python values)."""
+    from svt_av1_tpu_torch.ops import restoration as rst
+    (r0, r1), (s0, s1) = rst.SGR_PARAMS[ep]
+    h, w = dgd_ext.shape[1] - 6, dgd_ext.shape[2] - 6
+    d = dgd_ext[:, 3:3 + h, 3:3 + w].to(torch.int64)
+    u = d << rst.SGRPROJ_RST_BITS
+    v = u << rst.SGRPROJ_PRJ_BITS
+    xq = rst.decode_xq(xqd, ep)
+    m, lf, rt = slice(1, w + 1), slice(0, w), slice(2, w + 2)
+    if r0 > 0:
+        A, B = _sgr_ab_t(dgd_ext, r0, s0, h, w, bd)
+        out = torch.zeros((dgd_ext.shape[0], h, w), dtype=torch.int64,
+                          device=d.device)
+        ev = torch.arange(0, h, 2, device=d.device)
+
+        def five(T, rows):
+            return T[:, rows][:, :, lf] + T[:, rows][:, :, rt]
+
+        a = (A[:, ev][:, :, m] + A[:, ev + 2][:, :, m]) * 6 \
+            + (five(A, ev) + five(A, ev + 2)) * 5
+        bb = (B[:, ev][:, :, m] + B[:, ev + 2][:, :, m]) * 6 \
+            + (five(B, ev) + five(B, ev + 2)) * 5
+        out[:, 0::2] = _round2t(a * d[:, 0::2] + bb, rst.SGRPROJ_SGR_BITS
+                                + 5 - rst.SGRPROJ_RST_BITS)
+        od = torch.arange(1, h, 2, device=d.device) + 1
+        a = A[:, od][:, :, m] * 6 + five(A, od) * 5
+        bb = B[:, od][:, :, m] * 6 + five(B, od) * 5
+        out[:, 1::2] = _round2t(a * d[:, 1::2] + bb, rst.SGRPROJ_SGR_BITS
+                                + 4 - rst.SGRPROJ_RST_BITS)
+        v = v + xq[0] * (out - u)
+    if r1 > 0:
+        A, B = _sgr_ab_t(dgd_ext, r1, s1, h, w, bd)
+        c, up, dn = slice(1, h + 1), slice(0, h), slice(2, h + 2)
+
+        def cross(T):
+            return (T[:, c, m] + T[:, c, lf] + T[:, c, rt] + T[:, up, m]
+                    + T[:, dn, m]) * 4 \
+                + (T[:, up, lf] + T[:, up, rt] + T[:, dn, lf]
+                   + T[:, dn, rt]) * 3
+
+        flt = _round2t(cross(A) * d + cross(B), rst.SGRPROJ_SGR_BITS + 5
+                       - rst.SGRPROJ_RST_BITS)
+        v = v + xq[1] * (flt - u)
+    out = _round2t(v, rst.SGRPROJ_PRJ_BITS + rst.SGRPROJ_RST_BITS)
+    return out.clamp(0, (1 << bd) - 1)

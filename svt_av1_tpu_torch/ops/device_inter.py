@@ -869,3 +869,122 @@ def dp_all_dev(ref_pyr, src_pyr, w_eff: int, h_eff: int, sizes,
             res[(size, tuple(wh))] = (outs[k], outs[k + 1])
             k += 2
     return res
+
+
+# --- programs no encoder path reaches ----------------------------------------------
+# (the JAX package's ref_candidates_dev, chroma_multi_dev and flip_rd_dev:
+# numpy in, numpy out, composed of the shape group's stages; each runs on
+# ``device``, a CUDA device without a card raising)
+
+def _np_planes(planes, bd: int, device):
+    """Numpy pixel planes as ``dev.pix_dtype`` tensors on ``device``."""
+    return tuple(const(np.asarray(p).astype(np.int32), device)
+                 .to(dev.pix_dtype(bd)) for p in planes)
+
+
+def ref_candidates_dev(ref_pyr, src_pyr, xs, ys, size, qp, lam, bd=8,
+                       rdoq=False, qv=None, lamv=None, device="cuda"):
+    """Twin of the JAX ``ref_candidates_dev`` (inter._ref_candidates for
+    one reference): the HME full-pel search and the sub-pel refinement,
+    then the {refined MV, zero MV} pair through MC and the full loop,
+    folded by strict ``<`` on the RD cost with the MV bits. ref_pyr /
+    src_pyr: numpy (full, 1/2, 1/4) pyramids (the reference's padded).
+    Returns [cost int64, mv int64, qc int32, eo int32, recon pixels]."""
+    from svt_av1_tpu_torch.pipeline.encoder import check_device
+    device = check_device(device)
+    bw, bh = common.leaf_wh(size)
+    tx_size = common.tx_size_for_rect(bw, bh, 0)
+    b = len(xs)
+    qvec, lamqv = quant_vectors(qp, lam, b, qv, lamv)
+    rp = _np_planes(ref_pyr, bd, device)
+    sp = _np_planes(src_pyr, bd, device)
+    xs = const(np.asarray(xs, np.int64), device)
+    ys = const(np.asarray(ys, np.int64), device)
+    qv, lamqv = const(qvec, device), const(lamqv, device)
+    h, w = sp[0].shape
+    int_mvs, _ = fullpel_search_j(rp, sp, xs, ys, size)
+    mvs = subpel_refine_j(rp[0], sp[0], xs, ys, size, int_mvs, bd=bd)
+    srcs = _gather_curs(sp[0], xs, ys, bw, bh)[0].long()
+    best = None
+    for cand0 in (mvs, torch.zeros_like(mvs)):
+        cand = _clamp_mvs_j(cand0, xs, ys, bw, bh, w, h)
+        pred = dev.mc_block_batch_j(rp[0], xs, ys, cand, bw, bh, ss=0,
+                                    bd=bd).long()
+        qc, eo, rec, dist, rate = _full_loop_j(
+            srcs, pred, torch.zeros(b, dtype=torch.int32, device=device),
+            (0,), tx_size, size, qv, bd, 0,
+            rdoq_lam_qv=lamqv if rdoq else None)
+        mv_bits = (2 << md.RATE_Q) + 256 * (cand.abs().sum(dim=1) > 0)
+        cur = [_rdcost_j(dist, lamqv, rate + mv_bits), cand, qc, eo, rec]
+        if best is None:
+            best = cur
+            continue
+        bt = cur[0] < best[0]
+        best = [torch.where(bt.reshape((-1,) + (1,) * (o.dim() - 1)), o, p)
+                for o, p in zip(cur, best)]
+    pix = np.uint16 if bd > 8 else np.uint8
+    return [o.cpu().numpy().astype(dt) for o, dt in
+            zip(best, (np.int64, np.int64, np.int32, np.int32, pix))]
+
+
+def chroma_multi_dev(refs_u, refs_v, src_u, src_v, xs, ys, mvs, ridx,
+                     size, qp, bd=8, lam=0.0, rdoq=False, qv=None,
+                     lamv=None, device="cuda"):
+    """U+V single-ref chroma coding across the whole reference set (twin
+    of the JAX ``chroma_multi_dev``): per plane the chosen reference
+    ``ridx`` [B] of a stacked bank, MC at the given MVs and the full loop
+    (plane type 1, DCT). ``size`` is the chroma block size; numpy planes
+    and lane arrays. Returns (qc_u, eo_u, rec_u, qc_v, eo_v, rec_v):
+    int32, int32, int64 per plane."""
+    from svt_av1_tpu_torch.pipeline.encoder import check_device
+    device = check_device(device)
+    cw, ch = common.leaf_wh(size)
+    tx_uv = common.tx_size_for_rect(cw, ch, 1)
+    b = len(xs)
+    qvec, lamqv = quant_vectors(qp, lam, b, qv, lamv)
+    xs = const(np.asarray(xs, np.int64), device)
+    ys = const(np.asarray(ys, np.int64), device)
+    mvs = const(np.asarray(mvs, np.int64), device)
+    ridx = const(np.asarray(ridx, np.int64), device)
+    qv, lamqv = const(qvec, device), const(lamqv, device)
+    outs = []
+    for planes, srcp in ((refs_u, src_u), (refs_v, src_v)):
+        bank = torch.stack(_np_planes(planes, bd, device))
+        (srcp,) = _np_planes([srcp], bd, device)
+        srcs = _gather_curs(srcp, xs, ys, cw, ch)[0].long()
+        pred = dev.mc_block_batch_j(bank, xs, ys, mvs, cw, ch, ss=1, bd=bd,
+                                    ref_idx=ridx).long()
+        qc, eo, rec, _, _ = _full_loop_j(
+            srcs, pred, torch.zeros(b, dtype=torch.int32, device=device),
+            (0,), tx_uv, (cw, ch), qv, bd, 1,
+            rdoq_lam_qv=lamqv if rdoq else None)
+        outs += [qc.to(torch.int16).cpu().numpy().astype(np.int32),
+                 eo.to(torch.int16).cpu().numpy().astype(np.int32),
+                 rec.cpu().numpy().astype(np.int64)]
+    return tuple(outs)
+
+
+def flip_rd_dev(srcs, preds, size, qp, bd=8, lam=0.0, rdoq=False,
+                qv=None, lamv=None, device="cuda"):
+    """Full-loop distortion and rate of M intra candidate predictions per
+    block (twin of the JAX ``flip_rd_dev``): srcs [B, h, w], preds
+    [M, B, h, w] numpy. Returns (dist [M, B] int64, rate [M, B] int64,
+    the rate narrowed through int32 as the JAX program narrows it)."""
+    from svt_av1_tpu_torch.pipeline.encoder import check_device
+    device = check_device(device)
+    bw, bh = common.leaf_wh(size)
+    tx_size = common.tx_size_for_rect(bw, bh, 0)
+    m, b = preds.shape[0], srcs.shape[0]
+    qvec, lamqv = quant_vectors(qp, lam, b, qv, lamv)
+    s2 = const(np.broadcast_to(np.asarray(srcs, np.int64)[None],
+                               (m, b, bh, bw)).reshape(m * b, bh, bw),
+               device)
+    p2 = const(np.asarray(preds, np.int64).reshape(m * b, bh, bw), device)
+    qv2 = const(np.tile(qvec, m), device)
+    lam2 = const(np.tile(lamqv, m), device)
+    _, _, _, dist, rate = _full_loop_j(
+        s2, p2, torch.zeros(m * b, dtype=torch.int32, device=device), (0,),
+        tx_size, size, qv2, bd, 0, rdoq_lam_qv=lam2 if rdoq else None)
+    return (dist.reshape(m, b).cpu().numpy().astype(np.int64),
+            rate.reshape(m, b).to(torch.int32).cpu().numpy()
+            .astype(np.int64))

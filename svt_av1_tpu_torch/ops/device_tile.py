@@ -38,6 +38,8 @@ chosen mode, then the chroma choice between that mode and CfL.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -364,8 +366,15 @@ def _run_single(enc, meta, cands) -> None:
     a one-tile frame the recon stays on the device (``dev.pix_dtype``
     planes replace ``enc.recon``), else it lands in the host views."""
     meta = dict(meta, rect=(0, 0, enc.mi_rows, enc.mi_cols))
-    recon = _run_program(enc, [meta], enc.src,
-                         [tuple(p.shape) for p in enc.recon], cands)
+    store_recon(enc, _run_program(enc, [meta], enc.src,
+                                  [tuple(p.shape) for p in enc.recon], cands))
+
+
+def store_recon(enc, recon) -> None:
+    """A tile program's recon planes into the tile ``enc`` is entered
+    into: on a one-tile frame they stay on their device
+    (``dev.pix_dtype`` planes replace ``enc.recon``), else they land in
+    the host views."""
     pdt = dev.pix_dtype(enc.cfg.bit_depth)
     if getattr(enc, "_tile_count", 1) == 1:
         enc.recon = [p.to(pdt) for p in recon]
@@ -388,6 +397,137 @@ def tile_metadata(enc, cands):
     if not isinstance(s, (int, np.integer)) or s < 8:
         return None
     return tile_lane_meta(enc, cands)
+
+
+def tile_body_operands(enc, cands):
+    """(program key, operands) of ``make_tile_body`` for the tile ``enc``
+    is entered into (the JAX package's ``tile_metadata``), or None when
+    its leaves are not all one square size of at least 8 px or it has a
+    per-SB qindex map. The operands are numpy: the source planes, per
+    wave the lanes' positions, valid flags, above-right / bottom-left
+    availability and leaf indices padded to the widest wave, and the
+    qindex and lambda scalars."""
+    from svt_av1_tpu_torch.pipeline import avail
+    from svt_av1_tpu_torch.pipeline import md as md_mod
+    cfg = enc.cfg
+    sizes = set(enc.leaf_sizes.values())
+    if len(sizes) != 1 or enc.qmap_t is not None:
+        return None
+    s = sizes.pop()
+    if not isinstance(s, (int, np.integer)) or s < 8:
+        return None
+    leaves = enc._leaves()
+    waves = enc._dependency_waves(leaves, enc.mi_cols, enc.mi_rows)
+    n = len(leaves)
+    n_waves = int(waves.max()) + 1 if n else 0
+    wmax = int(np.bincount(waves).max())
+    xsw, ysw, idxw = (np.zeros((n_waves, wmax), np.int64) for _ in range(3))
+    validw, htrw, hblw = (np.zeros((n_waves, wmax), bool) for _ in range(3))
+    fill = np.zeros(n_waves, dtype=np.int64)
+    for i, (r, c, wh) in enumerate(leaves):
+        w = int(waves[i])
+        j = fill[w]
+        fill[w] = j + 1
+        xsw[w, j], ysw[w, j], validw[w, j] = c * 4, r * 4, True
+        vab = avail.leaf_vert_ab(enc.leaf_sizes, r, c, wh[0] >> 2,
+                                 wh[1] >> 2, enc.mi_rows, enc.mi_cols)
+        htrw[w, j] = avail.has_top_right_wh(r, c, wh[0] >> 2, wh[1] >> 2,
+                                            enc.mi_cols, vert_ab=vab)
+        hblw[w, j] = avail.has_bottom_left_wh(r, c, wh[0] >> 2, wh[1] >> 2,
+                                              enc.mi_rows, vert_ab=vab)
+        idxw[w, j] = enc.leaf_index[(r, c)]
+    key = (int(s), tuple(map(tuple, cands)), cfg.bit_depth, cfg.nfl,
+           bool(cfg.enable_tx_type_search and cfg.base_q_idx > 0),
+           n_waves, wmax, n,
+           (tuple(enc.recon[0].shape), tuple(enc.recon[1].shape)),
+           (tuple(enc.max_wh[0]), tuple(enc.max_wh[1])),
+           bool(cfg.enable_rdoq))
+    npix = np.uint8 if cfg.bit_depth <= 8 else np.int16
+    args = tuple(np.ascontiguousarray(p, dtype=npix) for p in enc.src[:3]) \
+        + (xsw, ysw, validw, htrw, hblw, idxw,
+           np.full((), int(enc.qp.qindex), np.int32),
+           np.full((), md_mod.lam_to_q(enc.lam), np.int64))
+    return key, args
+
+
+# the uniform program's outputs, in the JAX program's order: the per-leaf
+# decisions (SMALL_KEYS with ``y_tt`` for ``y_tx_type``), then the levels
+TILE_BODY_KEYS = ("y_mode", "y_delta", "uv_mode", "uv_delta", "alpha_u",
+                  "alpha_v", "y_tt", "eob_y", "eob_u", "eob_v", "qc_y",
+                  "qc_u", "qc_v")
+
+
+@functools.lru_cache(maxsize=64)
+def make_tile_body(size: int, cands: tuple, bd: int, nfl: int,
+                   tx_search: bool, n_waves: int, wmax: int, n_leaves: int,
+                   shapes: tuple, max_wh: tuple, rdoq: bool = False):
+    """The uniform-leaf tile program with the JAX package's signature
+    (``make_tile_body``; ``tile_body_operands`` gives the key and the
+    operands): one S x S shape class through the class step of the fused
+    programs (``_class_stage``, the same decide cores, CfL at S <= 32,
+    the same clamps), wave after wave. ``shapes``: ((Hy, Wy), (Hc, Wc))
+    padded plane dims; ``max_wh``: ((wy, hy), (wc, hc)) mi-area bounds.
+
+    The returned program takes the operands as tensors on one device
+    (src_y, src_u, src_v, xsw, ysw, validw, htrw, hblw, idxw [n_waves,
+    wmax], qv, lamqv) and returns (recon y, u, v in ``dev.pix_dtype``,
+    {TILE_BODY_KEYS: [n_leaves + 1, ...]}) on that device, each leaf's
+    outputs at its leaf index, narrowed as the JAX program narrows them:
+    modes, deltas, alphas and the tx type to int8, eobs and levels to
+    int16. The lanes of a wave are its valid prefix (one read of the
+    counts before the loop); the loop runs the real lanes only. The JAX
+    program writes its padding lanes to the extra row n_leaves (an index
+    inside its arrays, so its drop mode drops nothing): a padding lane
+    decides the block at (0, 0) with no neighbours, which is the first
+    leaf's decision, so that row holds the first leaf's outputs whenever
+    a wave is not full, and zeros otherwise."""
+    S = size
+    step = _class_stage((S, S), cands, bd, nfl, tx_search, rdoq)
+    (hy, wy), (hc, wc) = shapes
+    mwy, mhy = max_wh[0]
+    pdt = dev.pix_dtype(bd)
+    tx_y = common.tx_size_for_rect(S, S, 0)
+    tx_uv = common.tx_size_for_rect(S >> 1, S >> 1, 1)
+
+    def program(src_y, src_u, src_v, xsw, ysw, validw, htrw, hblw, idxw,
+                qv, lamqv):
+        device = src_y.device
+        src = [src_y, src_u, src_v]
+        recon = [torch.zeros(sh, dtype=torch.int32, device=device)
+                 for sh in ((hy, wy), (hc, wc), (hc, wc))]
+        n1 = n_leaves + 1
+        small = torch.zeros((len(SMALL_KEYS), n1), dtype=torch.int64,
+                            device=device)
+        qcs = [torch.zeros((n1,) + tuple(reversed(common.coded_dims(t))),
+                           dtype=torch.int32, device=device)
+               for t in (tx_y, tx_uv, tx_uv)]
+        counts = validw.sum(dim=1).tolist()
+        for w, k in enumerate(counts):
+            if not k:
+                continue
+            xs, ys = xsw[w, :k], ysw[w, :k]
+            full = torch.full((k,), 1, dtype=torch.int64, device=device)
+            out = step(recon, src, dict(
+                xs=xs, ys=ys, ha=ys > 0, hl=xs > 0, htr=htrw[w, :k],
+                hbl=hblw[w, :k], mwv=full * mwy, mhv=full * mhy,
+                qv=full.to(torch.int32) * qv.to(torch.int32),
+                lamqv=full * lamqv.to(torch.int64)))
+            idx = idxw[w, :k]
+            small[:, idx] = out[0]
+            for q, o in zip(qcs, out[1:]):
+                q[idx] = o.to(torch.int32)
+        if n_leaves and min(counts) < wmax:
+            first = idxw[0, 0]
+            small[:, n_leaves] = small[:, first]
+            for q in qcs:
+                q[n_leaves] = q[first]
+        res = dict(zip(TILE_BODY_KEYS[:10], small))
+        for k, v in res.items():
+            res[k] = v.to(torch.int16 if k.startswith("eob_") else torch.int8)
+        res.update(zip(TILE_BODY_KEYS[10:], (q.to(torch.int16) for q in qcs)))
+        return tuple(p.to(pdt) for p in recon) + (res,)
+
+    return program
 
 
 def analyze_tile_fused(enc, cands) -> bool:

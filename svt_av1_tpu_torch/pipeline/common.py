@@ -385,11 +385,12 @@ class PendingQC:
         self._done = None
         if dev.is_cuda:
             import torch
-            pinned = torch.empty(dev.shape, dtype=dev.dtype,
-                                 pin_memory=True)
-            pinned.copy_(dev, non_blocking=True)
-            self._done = torch.cuda.Event()
-            self._done.record()
+            with torch.cuda.device(dev.device):   # the tensor's own card
+                pinned = torch.empty(dev.shape, dtype=dev.dtype,
+                                     pin_memory=True)
+                pinned.copy_(dev, non_blocking=True)
+                self._done = torch.cuda.Event()
+                self._done.record()
             dev = pinned
         self.dev = dev
 

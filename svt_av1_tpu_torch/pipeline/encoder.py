@@ -83,11 +83,16 @@ class Encoder:
     SYNTAX_DEPTH = 4
     SYNTAX_DEPTH_RC = 0
 
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, shape_group_issue=None):
+        """``shape_group_issue``: a drop-in for
+        ``ops.device_inter.shape_group_issue`` that every inter frame of
+        this encoder issues its shape groups through (the strip-sharded
+        one of ``parallel/tiles.py``); None keeps the module's."""
         assert cfg.hierarchical_levels <= 5, \
             "pyramid depth capped at 5 (reference MAX_HIERARCHICAL_LEVELS)"
         check_device(cfg.device)
         self.cfg = cfg
+        self._shape_group_issue = shape_group_issue
         self.seq = common.sequence_header(cfg)
         # film grain synthesis parameters (display output only)
         self._grain = grain_ops.resolved_params(cfg) \
@@ -270,6 +275,7 @@ class Encoder:
                                 film_grain=self._grain)
         enc.aq_prev_luma = self._aq_prev(y)
         enc.tpl_qmap = self._tpl_maps.get(disp_idx)
+        enc.shape_group_issue = self._shape_group_issue
         idx = [last_slot] * 7
         alt = None
         used = [self._slots[last_slot]]
@@ -669,9 +675,11 @@ def _shared(items, copy_fn):
     return uniq, alias
 
 
-def encode_ivf(frames: Iterable[tuple], cfg: EncoderConfig) -> bytes:
-    """Encode an iterable of (y, u, v) frames to an IVF byte stream."""
-    enc = Encoder(cfg)
+def encode_ivf(frames: Iterable[tuple], cfg: EncoderConfig,
+               shape_group_issue=None) -> bytes:
+    """Encode an iterable of (y, u, v) frames to an IVF byte stream
+    (``shape_group_issue``: see ``Encoder``)."""
+    enc = Encoder(cfg, shape_group_issue=shape_group_issue)
     buf = io.BytesIO()
     frames = list(frames)
     write_ivf_header(buf, cfg.width, cfg.height, cfg.frame_rate_num,

@@ -99,6 +99,9 @@ class InterFrameEncoder:
         # variance AQ's temporal hint) and this frame's TPL offset map
         self.aq_prev_luma = None
         self.tpl_qmap = None
+        # set by the Encoder: a drop-in for device_inter.shape_group_issue
+        # (parallel/tiles.make_sharded_shape_group_issue), or None
+        self.shape_group_issue = None
 
     def _padded_ref(self, planes, valid_hw):
         """Padded reference planes + HME pyramid on the device, cached per
@@ -399,12 +402,13 @@ class InterFrameEncoder:
             if self.reference_select else ()
         bwd_pos = tuple(pos[r] for r in self.bwd_refs) \
             if self.reference_select else ()
+        issue = self.shape_group_issue or di.shape_group_issue
         issued = []
         with span("fused_issue", groups=len(batches)):
             for blocks, ids, wh, qvec in batches:
                 lamv = None if qvec is None else \
                     rd.lane_lambdas(qvec, cfg.bit_depth)
-                _, outs, _ = di.shape_group_issue(
+                _, outs, _ = issue(
                     self.recon, [self.ref_pyrs[r] for r in refs_order],
                     [self.refs[r][1] for r in refs_order],
                     [self.refs[r][2] for r in refs_order],

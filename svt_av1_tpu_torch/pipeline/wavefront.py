@@ -76,6 +76,11 @@ class WavefrontIntraEncoder:
         self._tile_count = 1
         self._defer_tiles = None
         self._defer_waves = None
+        # set by parallel/tiles.py: no tile defers into the frame program,
+        # and each uniform tile's analysis is ``tile_hook(self, cands)``
+        # (True when it filled the tile) in place of analyze_tile_fused
+        self._no_defer = False
+        self.tile_hook = None
 
     # --- batched wave compute on the torch device ------------------------------
     def _wave_compute(self, plane: int, parts, size, cands, forced=None,
@@ -221,6 +226,13 @@ class WavefrontIntraEncoder:
         return wave
 
     # --- main ------------------------------------------------------------------
+    def encode(self, y: np.ndarray, u: np.ndarray, v: np.ndarray):
+        """``encode_compute`` then ``package_syntax`` on this thread.
+        Returns (tu_bytes, display recon, stats)."""
+        recon = self.encode_compute(y, u, v)
+        tu, stats = self.package_syntax()
+        return tu, recon, stats
+
     def encode_compute(self, y: np.ndarray, u: np.ndarray,
                        v: np.ndarray):
         """The frame's device work: partition, waves, deblocking. Returns
@@ -256,7 +268,8 @@ class WavefrontIntraEncoder:
         self._tile_count = len(rects)
         # several tiles: each tile's analysis defers into one frame-batched
         # program whose step w runs wave w of every tile (the JAX gate)
-        self._defer_tiles = [] if self._fused and len(rects) > 1 else None
+        self._defer_tiles = [] if self._fused and len(rects) > 1 \
+            and not self._no_defer else None
         # the per-wave loop likewise runs wave w of every tile as one step
         # (tiles share no prediction edge, so the lanes are independent)
         self._defer_waves = [] if not self._fused and len(rects) > 1 \
@@ -362,7 +375,8 @@ class WavefrontIntraEncoder:
                     self._defer_tiles.append(meta)
                     return
             with span("intra_tile_fused"):
-                if device_tile.analyze_tile_fused(self, cands):
+                analyze = self.tile_hook or device_tile.analyze_tile_fused
+                if analyze(self, cands):
                     return
                 if device_tile.analyze_tile_fused_mixed(self, cands):
                     return
@@ -671,6 +685,12 @@ class WavefrontIntraEncoder:
                 dc_sign_ctx=sign_ctx, intra_dir=m,
                 base_qindex=cfg.base_q_idx)
             self.ctxs.update_txb_ctx(p, x4, y4, ts, cul)
+
+
+def encode_keyframe_wavefront(y, u, v, cfg: EncoderConfig):
+    """One key frame through ``WavefrontIntraEncoder``: (tu_bytes,
+    display recon, stats)."""
+    return WavefrontIntraEncoder(cfg).encode(y, u, v)
 
 
 def _ftype_from(sm: np.ndarray, rows: np.ndarray,

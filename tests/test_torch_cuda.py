@@ -943,3 +943,79 @@ def _luma_pair(w, h):
     from svt_av1_tpu_torch.utils.clip import make_clip
     f0, f1 = make_clip(w=w, h=h, frames=2, seed=3)
     return f1[0].astype(np.int32), f0[0].astype(np.int32)
+
+
+
+def _mc_clip(w, h, n, seed=9):
+    """tests/test_multichip.py's clip (seeded numpy)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 255, (h + 64, w + 64)).astype(np.uint8)
+    return [(base[2 * t:2 * t + h, 3 * t:3 * t + w],
+             np.full((h // 2, w // 2), 100 + 5 * t, np.uint8),
+             rng.integers(100, 160, (h // 2, w // 2)).astype(np.uint8))
+            for t in range(n)]
+
+
+def test_tile_sharded_keyframe_4_on_card_equals_cpu(cuda):
+    """4 tiles on ["cuda:0"] * 4 (512x128): the TU, halo_ok and stats
+    equal the same function on ["cpu"] * 4, and the fused kernel launched
+    inside every tile program."""
+    from svt_av1_tpu_torch.config import EncoderConfig
+    from svt_av1_tpu_torch.parallel import tiles
+    (y, u, v), = _mc_clip(512, 128, 1)
+    out, reports = {}, {}
+    for d in ("cuda:0", "cpu"):
+        cfg = EncoderConfig(width=512, height=128, qp=40, tile_cols_log2=2,
+                            fixed_partition_size=16,
+                            enable_intra_edge_filter=False, device=d)
+        reports[d] = {}
+        out[d] = tiles.encode_keyframe_tiles_sharded(
+            y, u, v, cfg, [d] * 4, report=reports[d])
+        assert reports[d]["injected"] == 4
+    assert out["cuda:0"] == out["cpu"] and out["cpu"][1]
+    for t in reports["cuda:0"]["tiles"]:
+        assert t["launches"].get("quant_stage_rdoq", 0) > 0, t
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_sharded_dlf_4_on_card_equals_host(cuda, bd):
+    """The distributed DLF over 4 strips of cuda:0 (512x64) equals the
+    port's host filter, as on the CPU."""
+    from svt_av1_tpu_torch.ops import dlf
+    from svt_av1_tpu_torch.parallel import tiles
+    rng = np.random.default_rng(bd)
+    w, h = 512, 64
+    src = [rng.integers(0, 1 << bd, s).astype(np.uint16)
+           for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    rec = [(p // 16 * 16).astype(np.uint16) for p in src]
+    leaf_sizes = {(r, c): 16 for r in range(0, h // 4, 4)
+                  for c in range(0, w // 4, 4)}
+    want_lv = dlf.pick_levels(rec, [p.astype(np.int64) for p in src],
+                              leaf_sizes, h // 4, w // 4, 180, bd)
+    want = [p.copy() for p in rec]
+    dlf.loop_filter_frame(want, leaf_sizes, h // 4, w // 4, want_lv, bd=bd)
+    planes, levels = tiles.dlf_search_apply_sharded(
+        rec, src, leaf_sizes, h // 4, w // 4, 180, bd, ["cuda:0"] * 4)
+    assert levels == want_lv
+    for a, b in zip(planes, want):
+        assert np.array_equal(a, b)
+
+
+def test_strip_sharded_inter_on_card_equals_cpu(cuda):
+    """Low-delay P (512x64) with every shape group over 4 strips of
+    cuda:0 equals the unsharded stream on the CPU: the sharded functions
+    refuse nothing on the card that they take on the CPU."""
+    from svt_av1_tpu_torch.config import EncoderConfig
+    from svt_av1_tpu_torch.parallel import tiles
+    from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
+    frames = _mc_clip(512, 64, 3)
+
+    def cfg(d):
+        return EncoderConfig(width=512, height=64, qp=40,
+                             hierarchical_levels=0, fixed_partition_size=16,
+                             device=d)
+
+    sharded = encode_ivf(frames, cfg("cuda:0"),
+                         shape_group_issue=tiles.make_sharded_shape_group_issue(
+                             ["cuda:0"] * 4, strip_w=128))
+    assert sharded == encode_ivf(frames, cfg("cpu"))

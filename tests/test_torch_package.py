@@ -4,10 +4,10 @@ The port imports nothing of JAX and nothing of the JAX package (an
 all-intra, an inter encode and one with the rate and analysis tools load
 every module of the port's main path), keeps its own copies of the
 constant tables (equal to the JAX package's), has a counterpart of every
-module of the JAX package but those ROADMAP.md lists as not yet ported,
-carries a JAX config across, refuses the tool of a later slice
-(multi-device sharding) and accepts every other, and never falls back to
-the CPU when it was asked for the card.
+module and function of the JAX package (ROADMAP.md's "Not yet ported"
+list is empty, and NOT_PORTED with it), carries a JAX config across, the
+unread ``mesh_shape`` included, accepts every tool, and never falls back
+to the CPU when it was asked for the card.
 """
 
 import ast
@@ -32,13 +32,7 @@ JAX_SRC = REPO / "svt_av1_tpu"
 # what the port does not have yet, as ROADMAP.md's "Not yet ported" list
 # names it: JAX package modules, and functions (module::name) of modules
 # the port has
-NOT_PORTED = {
-    "parallel/tiles.py", "utils/natural.py",
-    "ops/device.py::cdef_find_dir_batch", "ops/device.py::cdef_filter_blocks",
-    "ops/device.py::wiener_filter_batch", "ops/device.py::sgr_filter_batch",
-    "ops/device_inter.py::ref_candidates_dev",
-    "ops/device_inter.py::chroma_multi_dev",
-    "ops/device_inter.py::flip_rd_dev", "ops/device_tile.py::make_tile_body"}
+NOT_PORTED = set()
 # the JAX package by name; svt_av1_tpu_torch shares its prefix
 JAX_PKG = re.compile(r"\bsvt_av1_tpu\b(?!_torch)")
 IMPORT = re.compile(r"^\s*(?:from\s+(\S+)\s+import|import\s+(\S+))")
@@ -178,9 +172,21 @@ def test_config_from_jax_round_trips():
 
 @pytest.mark.parametrize("field,value", [("mesh_shape", (1, 2))])
 def test_later_slices_raise_not_implemented(field, value):
-    """Multi-device sharding is the one tool of a later slice."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EncoderConfig(**{**INTRA, field: value})
+    """``mesh_shape`` (once the tool of a later slice, refused) builds,
+    carries across ``config_from_jax`` and is read by nothing: the stream
+    equals the JAX host stream of the same config. (The name dates from
+    when the field raised.)"""
+    from svt_av1_tpu.pipeline.encoder import encode_ivf as jax_encode_ivf
+    from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
+    assert getattr(EncoderConfig(**{**INTRA, field: value}), field) == value
+    jcfg = JaxConfig(**{**INTRA, field: value})
+    cfg = config_from_jax(dataclasses.asdict(jcfg), device="cpu")
+    assert getattr(cfg, field) == value
+    rng = np.random.default_rng(5)
+    frames = [(rng.integers(0, 256, (64, 64), dtype=np.uint8),
+               rng.integers(0, 256, (32, 32), dtype=np.uint8),
+               rng.integers(0, 256, (32, 32), dtype=np.uint8))]
+    assert encode_ivf(frames, cfg) == jax_encode_ivf(frames, jcfg)
 
 
 @pytest.mark.parametrize("field,value", [
