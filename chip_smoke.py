@@ -17,8 +17,8 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    card, exact, over every row length the full loop makes (16 to 1024,
    the rectangles' 32, 128 and 512 included), log_scales, plane types,
    RDOQ on/off, batch sizes and bit depths 8 and 10, and at the most rows
-   a 1080p shape group can give it (B = 16320 rows of n = 256 and of
-   n = 64), with times beside the bound;
+   a 1080p and a 4K shape group can give it (B = 16320 and 65280 rows
+   of n = 256 and of n = 64), with times beside the bound;
 4. the first slice's main path through the user entry point: a one-frame
    1920x1080 8-bit all-intra stream (preset 5, qp 40) through
    ``encode_ivf`` on ``cuda``, whose sha256 must equal the JAX package's
@@ -115,19 +115,32 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    on the card; the plain quantizer never runs. Seconds per check, per
    tile program and per inter frame (beside ``[inter]``'s unsharded
    s/frame), launches per tile and per strip;
-14. each mode and row length timed at the heaviest shape the seven
-   encodes and the three phases above gave it; one whole fused key frame
-   program (the all-intra clip's key frame, replayed under
-   torch.profiler for its wall, device busy time and device operations),
-   beside it one wave of the per-wave path through
-   ``decide_block_batch_dev``, and one (step, shape) group of the
-   directional key frame replayed under torch.profiler; the seconds each
-   phase took (``[time]``);
-15. a ``{"kernels": [...]}`` line, one entry per mode and row length
-   (``launches``: the sum over the seven encodes, ``[entry]``, ``[app]``
-   and ``[multichip]``; ``launches_by_path``: each one's own count, and the RA
-   encode's inside its inter frames), the card's line, and last the
-   device line.
+14. ``[baseline]``, the four BASELINE.md operating points no phase
+   above runs, each through ``encode_ivf`` on ``cuda`` against the JAX
+   package's stream (``BASELINE``, ``GOLDEN_HIRES4K_*``,
+   ``GOLDEN_VBR10_*``, ``GOLDEN_AI480_*``, ``GOLDEN_LDP720_*``): 2
+   frames of 3840x2160 10-bit (key + P, 4 tile columns), 6 frames of
+   1920x1080 10-bit VBR (tbr 3000, lookahead 17, hier 3), 2 all-intra
+   frames of 848x480 (one tile: the tile's own program) and 3 LD-P
+   frames of 1280x720 (2 tiles); each must match its golden's bytes and
+   TU count, launch the fused kernel and never the plain trim or rate,
+   and run every key frame in a fused program and never ``_code_wave``;
+   the 4K stream must decode, by the port's mirror decoder, to the
+   encoder's recon; per config the spans, s/frame (key and inter apart),
+   launches by mode and row length and the peak device memory; then
+   (``[kernel-4k]``) the kernel exact against its plain versions at the
+   most rows the 4K run gave each mode, row length and log_scale;
+15. each mode and row length timed at the heaviest shape the encodes
+   and the phases above gave it; one wave of the per-wave path through
+   ``decide_block_batch_dev``, one (step, shape) group of the
+   directional key frame, the largest shape groups of ``[inter]`` and
+   ``[search]`` and one inter frame's post-filters, each replayed under
+   torch.profiler; the seconds each phase took (``[time]``);
+16. a ``{"kernels": [...]}`` line, one entry per mode and row length
+   (``launches``: the sum over the seven encodes, ``[entry]``, ``[app]``,
+   ``[multichip]`` and ``[baseline]``; ``launches_by_path``: each one's
+   own count, and the RA encode's inside its inter frames), the card's
+   line, and last the device line.
 
 Needs one CUDA device; without one it exits 2 and prints no result.
 Details (per-shape times, stage spans, ptxas report) go to
@@ -139,12 +152,14 @@ from __future__ import annotations
 import collections
 import hashlib
 import json
+import multiprocessing
 import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 # the JAX package's stream of the same input: svt_av1_tpu.pipeline.encoder.
@@ -199,6 +214,44 @@ GOLDEN_RC_SHA256 = \
     "2a987a17a54bd986d71f0eb323d48bf21532fd75dd1a1d0d8f1227ecfb97a1a9"
 GOLDEN_RC_BYTES = 292529
 RC_TARGET_BPS, RC_LOOKAHEAD, RC_GRAIN = 6_000_000, 8, 10
+# [baseline]: the four BASELINE.md operating points no other phase runs.
+# Each golden is the JAX package's stream of the same clip and options:
+# encode_ivf(backend="host") with svt_av1_tpu.app.cli.preset_config
+# (tests/torch_baseline_goldens.py computes them). Clips: "hires" is
+# tools/smoke_hires.make_clip(w, h, frames, bit_depth), "bench" is
+# utils/clip.make_clip(w, h, frames) (seed 3 both).
+GOLDEN_HIRES4K_SHA256 = \
+    "6f9db4d99a16e0386385c47208491cbc7fe7c9caf5c5d5dfd152752b3097575c"
+GOLDEN_HIRES4K_BYTES, GOLDEN_HIRES4K_TUS = 1560782, 2
+GOLDEN_VBR10_SHA256 = \
+    "b64cf39c9514c30bff084d9ffd88cafd8d89a4c00a76458f9871dc315ef1d70a"
+GOLDEN_VBR10_BYTES, GOLDEN_VBR10_TUS = 14536, 9
+GOLDEN_AI480_SHA256 = \
+    "2c367518db7d1176acf55f1fccda7c556936cca47336a5ae0a3e24eecc762965"
+GOLDEN_AI480_BYTES, GOLDEN_AI480_TUS = 153374, 2
+GOLDEN_LDP720_SHA256 = \
+    "0bfb360e5be166ec29718ca8273b1a5d9b9dd4b534cc7a39b3dc8175a7940902"
+GOLDEN_LDP720_BYTES, GOLDEN_LDP720_TUS = 178973, 3
+# (name, clip, (w, h, frames[, bit depth]), preset_config options, key
+# frame tiles, golden bytes, golden sha256, golden TUs). One tile runs the
+# tile's own program (analyze_tile_fused[_mixed]); several run the frame
+# program (run_tiles_fused).
+BASELINE = (
+    ("hires4k", "hires", (3840, 2160, 2, 10),
+     dict(width=3840, height=2160, qp=40, bit_depth=10, preset=5,
+          intra_period=-1), 4,
+     GOLDEN_HIRES4K_BYTES, GOLDEN_HIRES4K_SHA256, GOLDEN_HIRES4K_TUS),
+    ("vbr10", "hires", (1920, 1080, 6, 10),
+     dict(width=1920, height=1080, qp=40, bit_depth=10, preset=5,
+          intra_period=-1, hierarchical_levels=3, tbr=3000, lad=17), 4,
+     GOLDEN_VBR10_BYTES, GOLDEN_VBR10_SHA256, GOLDEN_VBR10_TUS),
+    ("ai480", "bench", (848, 480, 2),
+     dict(width=848, height=480, qp=40, preset=5, intra_period=0), 1,
+     GOLDEN_AI480_BYTES, GOLDEN_AI480_SHA256, GOLDEN_AI480_TUS),
+    ("ldp720", "bench", (1280, 720, 3),
+     dict(width=1280, height=720, qp=40, preset=5, intra_period=-1), 2,
+     GOLDEN_LDP720_BYTES, GOLDEN_LDP720_SHA256, GOLDEN_LDP720_TUS),
+)
 # [multichip]: DCI 2K, where preset 5's 4 tile columns are 4 equal tiles
 # of 8 superblocks (at 1920 wide they are 8, 8, 8 and 6, which the tile
 # program refuses), on 4 shards of the one card
@@ -225,11 +278,12 @@ GOLDEN_MC_INTER_SHA256 = \
 GOLDEN_MC_INTER_BYTES = 423291
 TOOL_SPANS = ("keyframe", "intra_partition_dp", "waves", "intra_tiles_fused",
               "inter_frame", "dlf", "entropy", "tpl", "denoise", "grain")
-# synthetic large-batch checks at the most rows a 1080p shape group can
-# give the quantization stage: the [2B] single-ref pair of 8160 16x16 luma
-# blocks (n = 256) and U+V of their 8x8 chroma. The RA clip's partition DP
-# picks large blocks, so its own launches stay at B <= 968.
-INTER_BATCHES = ((256, 16320), (64, 16320))
+# synthetic large-batch checks at the most rows a 1080p and a 4K shape
+# group can give the quantization stage: the [2B] single-ref pair of the
+# 16x16 luma blocks (n = 256; 8160 at 1080p, 32640 on the 3840x2176
+# bucket) and U+V of their 8x8 chroma. The partition DP picks large
+# blocks, so the encodes' own launches stay far below.
+INTER_BATCHES = ((256, 16320), (64, 16320), (256, 65280), (64, 65280))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (data sheet)
 INT32_LANES_PER_SM = 64          # Hopper SM: 64 INT32 lanes (128 FP32)
 OUT_DIR = "chiprun_out"
@@ -549,8 +603,8 @@ def _keyframe_spies(keys):
     """Spies on the key frames' paths, recording into ``keys``: per key
     frame the fused frame program's tiles, steps and kernel launches
     (mode, B, n, log_scale) inside it and inside the whole key frame
-    compute, the per-wave loop's tiles, waves and (wave, shape) calls,
-    and the last frame program's arguments for the profiled replay."""
+    compute, and the per-wave loop's tiles, waves and (wave, shape)
+    calls."""
     from svt_av1_tpu_torch.ops import device as dev
     from svt_av1_tpu_torch.ops import device_tile as tdt
     from svt_av1_tpu_torch.pipeline import wavefront as twf
@@ -577,7 +631,6 @@ def _keyframe_spies(keys):
             out = launches_in(lambda: fn(enc, metas, *a),
                               rec["program_shapes"])
             rec["programs"].append(dict(enc.fused_stats))
-            keys["replay"] = (enc, metas) + a
             return out
         return call
 
@@ -752,7 +805,7 @@ def phase_slice(torch):
     key = _keyframe_report("slice", keys, tracer, TILES)
     return {"seconds": dt, "seconds_per_frame": dt / FRAMES,
             "keyframe_span_s": keyframes, "keyframes": key,
-            "replay": keys["replay"], "bytes": len(ivf),
+            "bytes": len(ivf),
             "sha256": sha, "launches": launches,
             "plain_trim_rate_calls": plain_calls,
             "launch_shapes": _shape_keys(shapes), "spans": spans}, shapes
@@ -1866,6 +1919,218 @@ def phase_multichip(torch, inter_s_per_frame: float):
     return res, shapes
 
 
+def _baseline_frames(clip: str, args: tuple):
+    """A [baseline] clip: "hires" is the port's tools/smoke_hires clip,
+    "bench" the port's utils/clip one (seed 3 both)."""
+    if clip == "hires":
+        from svt_av1_tpu_torch.tools.smoke_hires import make_clip
+        return make_clip(*args)
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    w, h, n = args
+    return make_clip(w, h, frames=n, seed=3)
+
+
+def _single_tile_spies(runs):
+    """Spies on the one-tile key frame programs (``analyze_tile_fused``,
+    ``analyze_tile_fused_mixed``): per call its name, whether it coded
+    the tile and the kernel launches inside it, into ``runs``."""
+    from svt_av1_tpu_torch.ops import device as dev
+    from svt_av1_tpu_torch.ops import device_tile as tdt
+
+    def spy(name):
+        def wrap(fn):
+            def call(enc, cands):
+                before = sum(dev.LAUNCHES.values())
+                ok = fn(enc, cands)
+                runs.append({"program": name, "coded": ok,
+                             "launches": sum(dev.LAUNCHES.values())
+                             - before,
+                             "stats": dict(enc.fused_stats) if ok
+                             else None})
+                return ok
+            return call
+        return wrap
+
+    return [(tdt, nm, spy(nm)) for nm in ("analyze_tile_fused",
+                                          "analyze_tile_fused_mixed")]
+
+
+def _recon_spy(recons):
+    """A spy on ``Encoder.get_packet`` that keeps each displayed recon."""
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+
+    def wrap(fn):
+        def call(self):
+            pkt = fn(self)
+            if pkt is not None and pkt[1] is not None:
+                recons.append(pkt[1])
+            return pkt
+        return call
+    return [(Encoder, "get_packet", wrap)]
+
+
+def _baseline_point(torch, point, decode_pool) -> tuple:
+    """One BASELINE.md operating point through ``encode_ivf`` on the card
+    against its JAX golden: the stream and its TU count, the fused
+    kernel launched and the plain trim and rate never, every key frame in
+    a fused program (the one-tile program, or the frame program over all
+    tiles) and the per-wave loop never; the hires4k stream goes to the
+    port's mirror decoder in ``decode_pool`` (the future in the result's
+    ``decode``). Prints spans, s/frame (key and inter apart), launches by
+    mode and row length and the peak device memory. Returns (result,
+    {(mode, B, n, log_scale): launches})."""
+    import numpy as np
+
+    from svt_av1_tpu_torch.app.cli import preset_config
+    name, clip, args, options, tiles, golden_bytes, golden_sha, \
+        golden_tus = point
+    tag = f"baseline {name}"
+    frames = _baseline_frames(clip, args)
+    cfg = preset_config(**options, device="cuda")
+    runs, recons = [], []
+    spies = _single_tile_spies(runs) + _recon_spy(recons)
+    torch.cuda.reset_peak_memory_stats()
+    ivf, dt, launches, shapes, plain_calls, tracer, keys = _encode_counted(
+        torch, frames, cfg, spies=spies)
+    peak = torch.cuda.max_memory_allocated()
+    sha = hashlib.sha256(ivf).hexdigest()
+    tus = int.from_bytes(ivf[24:28], "little")
+    spans = tracer.summary()
+    key_s = [s["dur"] for s in tracer.spans if s["stage"] == "keyframe"]
+    n_inter = len(frames) - len(key_s)
+    inter_s = (dt - sum(key_s)) / n_inter if n_inter else None
+    print(f"[{tag}] {cfg.width}x{cfg.height} {cfg.bit_depth}-bit "
+          f"{options}: {len(frames)} frames in {dt:.2f} s "
+          f"({dt / len(frames):.3f} s/frame), {tus} TUs, {len(ivf)} bytes, "
+          f"sha256 {sha}; peak device memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    print(f"[{tag}] key frames {len(key_s)}: "
+          f"{[round(k, 3) for k in key_s]} s (their compute); inter frames "
+          f"{n_inter}: " + (f"{inter_s:.3f} s/frame (wall after the key "
+                            f"frames' compute, entropy drained)"
+                            if n_inter else "none"), flush=True)
+    for stage, v in spans.items():
+        print(f"[{tag}] span {stage}: {v['count']} x, {v['total_s']} s",
+              flush=True)
+    by_mode_n = {f"{m} n={n}": v
+                 for (m, n), v in sorted(_by_mode_n(shapes).items())}
+    print(f"[{tag}] kernel launches by mode and row length {by_mode_n}",
+          flush=True)
+    _check_stream(tag, ivf, sha, golden_bytes, golden_sha)
+    if tus != golden_tus:
+        raise SystemExit(f"{tag}: {tus} TUs, the golden has {golden_tus}")
+    if launches.get("quant_stage_rdoq", 0) + launches.get("quant_stage",
+                                                           0) <= 0:
+        raise SystemExit(f"{tag}: the fused kernel was never launched")
+    if plain_calls:
+        raise SystemExit(f"{tag}: the plain trim or rate ran: "
+                         f"{plain_calls}")
+    res = {"frames": len(frames), "tiles": tiles, "seconds": dt,
+           "seconds_per_frame": dt / len(frames), "keyframe_compute_s": key_s,
+           "inter_s_per_frame": inter_s, "bytes": len(ivf), "sha256": sha,
+           "tus": tus, "peak_memory_bytes": peak, "launches": launches,
+           "launch_shapes": _shape_keys(shapes), "spans": spans}
+    if tiles > 1:
+        res["keyframes"] = _keyframe_report(tag, keys, tracer, tiles)
+    else:
+        coded = [r for r in runs if r["coded"]]
+        for r in coded:
+            print(f"[{tag}] key frame: {r['program']} (span "
+                  f"intra_tile_fused) {r['stats']}, {r['launches']} kernel "
+                  f"launches inside it", flush=True)
+        if len(coded) != len(key_s) or keys["code_wave"] \
+                or any(rec["programs"] for rec in keys["frames"]) \
+                or not all(r["launches"] for r in coded):
+            raise SystemExit(f"{tag}: every key frame must run the one-tile "
+                             f"program, launching the kernel, and never "
+                             f"the frame program or the per-wave loop: "
+                             f"{runs}, _code_wave {keys['code_wave']}")
+        print(f"[{tag}] every key frame in the one-tile program; "
+              f"run_tiles_fused and _code_wave never", flush=True)
+        res["keyframes"] = runs
+    if name == "hires4k":
+        # the port's mirror decoder is host NumPy (about 90 s for these two
+        # 4K frames): it runs in a process of its own, beside the phases
+        # that follow, and phase_baseline_decode waits for it
+        res["decode"] = decode_pool.submit(
+            _decode_equals_recon, ivf, [[np.asarray(p) for p in r]
+                                        for r in recons])
+    return res, shapes
+
+
+def _decode_equals_recon(ivf: bytes, recons) -> dict:
+    """The port's mirror decoder over ``ivf`` against the encoder's
+    displayed recons: frames decoded, whether every plane is equal, and
+    the seconds it took."""
+    import io
+
+    import numpy as np
+
+    from svt_av1_tpu_torch.pipeline.decode import decode_ivf
+    t0 = time.perf_counter()
+    decs = decode_ivf(io.BytesIO(ivf))
+    same = len(decs) == len(recons) and all(
+        np.array_equal(np.asarray(a), b)
+        for d, r in zip(decs, recons) for a, b in zip(d, r))
+    return {"frames": len(decs), "recons": len(recons), "equal": same,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_baseline(torch, decode_pool):
+    """The four BASELINE.md operating points no other phase runs
+    (``BASELINE``), each against its JAX golden. Returns (result,
+    {(mode, B, n, log_scale): launches} over the four, those of
+    hires4k)."""
+    res, shapes = {}, collections.Counter()
+    for point in BASELINE:
+        t0 = time.perf_counter()
+        res[point[0]], sh = _baseline_point(torch, point, decode_pool)
+        res[point[0]]["check_s"] = time.perf_counter() - t0
+        shapes.update(sh)
+        if point[0] == "hires4k":
+            hires = sh
+    return res, shapes, hires
+
+
+def phase_baseline_decode(res) -> dict:
+    """Wait for the hires4k stream's mirror decode and fail unless it
+    reproduced the encoder's recon of every frame."""
+    hires = res["hires4k"]
+    out = hires.pop("decode").result()
+    print(f"[baseline hires4k] the port's mirror decoder (its own "
+          f"process): {out['frames']} frames in {out['seconds']:.2f} s, "
+          f"equal to the encoder's {out['recons']} recon frames: "
+          f"{out['equal']}", flush=True)
+    if not out["equal"] or not out["frames"] == out["recons"] \
+            == hires["frames"]:
+        raise SystemExit("baseline hires4k: the decoded stream differs "
+                         "from the encoder's recon")
+    hires["decode"] = out
+    return out
+
+
+def phase_kernel_maxima(torch, shapes) -> list:
+    """Phase 3's sweep at the most rows the 4K run gave each mode, row
+    length and log_scale: the kernel against its plain version, exact, at
+    bit depth 10 (the 4K clip's), plane types 0 and 1."""
+    most = {}
+    for (mode, b, n, ls) in shapes:
+        most[(mode, n, ls)] = max(most.get((mode, n, ls), 0), b)
+    rows = []
+    for (mode, n, ls), b in sorted(most.items()):
+        ins = _stage_inputs(torch, n, ls, b, seed=n + b + ls)
+        for pt in ((0,) if mode == "quantize_qv" else (0, 1)):
+            row = _check(torch, mode, *ins, ls, pt, 10)
+            if not row["exact"]:
+                raise SystemExit(f"{mode} kernel != plain at {row}")
+            rows.append(row)
+    most_rows = {f"{m} n={n} ls={ls}": b
+                 for (m, n, ls), b in sorted(most.items())}
+    print(f"[kernel-4k] exact at the 4K run's most rows per mode, row "
+          f"length and log_scale: {most_rows}", flush=True)
+    return rows
+
+
 def phase_postfilter_profile(torch, replay) -> dict:
     """One inter frame's post-filters replayed from clones of its
     deblocked planes: CDEF + LR together (``postfilter.run_postfilters``),
@@ -2010,52 +2275,9 @@ def phase_directional_profile(torch, groups) -> dict:
     return res
 
 
-def phase_keyframe_profile(torch, replay) -> dict:
-    """One whole fused key frame program (the all-intra clip's last key
-    frame, ``run_tiles_fused`` on its tile states) replayed once under
-    torch.profiler (device activity only): its wall time, device
-    operations and device busy ms (the sum of device event times). The
-    encode's own ``intra_tiles_fused`` span is its plain wall. The
-    profiler's raw events are read directly: building its event tree over
-    a million operations takes minutes."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from svt_av1_tpu_torch.ops import device_tile as tdt
-    enc, metas, frame_src, frame_recon, cands = replay
-
-    def run() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tdt.run_tiles_fused(enc, metas, frame_src, frame_recon, cands)
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0)
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prof_wall_ms = run()
-    t1 = time.perf_counter()
-    cuda = torch.autograd.DeviceType.CUDA
-    dev_ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-              if e.device_type() == cuda]
-    busy_ms = sum(dev_ns) / 1e6
-    stats = dict(enc.fused_stats)
-    res = {"profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
-           "device_busy_share_profiled":
-               busy_ms / prof_wall_ms if busy_ms else None,
-           "device_ops": len(dev_ns), "program": stats,
-           "profiler_post_s": time.perf_counter() - t1}
-    share = "not measured" if busy_ms == 0 else \
-        f"{100 * res['device_busy_share_profiled']:.2f}% of the wall"
-    print(f"[profile] one fused key frame program ({stats['tiles']} tiles, "
-          f"{stats['wave_steps']} wave steps, {stats['class_steps']} class "
-          f"steps, {stats['lanes']} lanes): wall {prof_wall_ms:.2f} ms "
-          f"profiled; device busy {busy_ms:.3f} ms ({share}), "
-          f"{len(dev_ns)} device ops", flush=True)
-    return res
-
-
 def phase_profile(torch, np) -> dict:
-    """The per-wave path's reading, kept beside the fused program's for
-    comparison: one wave of the main path's most frequent shape — luma
+    """The per-wave path's reading: one wave of the main path's most
+    frequent shape — luma
     16x16, U and V 8x8 with CfL, B=8 — through decide_block_batch_dev
     under torch.profiler, device kernel time over wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -2189,7 +2411,6 @@ def main() -> int:
     build = timed("build", phase_build)
     grid = timed("kernel", phase_kernels, torch, env["int32_ops_per_s"])
     slice_res, shapes = timed("slice", phase_slice, torch)
-    replay = slice_res.pop("replay")
     inter_res, inter_shapes, inter_frame_shapes, biggest = \
         timed("inter", phase_inter, torch)
     dir_res, dir_shapes = timed("directional", phase_directional, torch)
@@ -2204,6 +2425,11 @@ def main() -> int:
     app_res, app_shapes = timed("app", phase_app, torch)
     mc_res, mc_shapes = timed("multichip", phase_multichip, torch,
                               inter_res["inter_s_per_frame"])
+    decode_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    base_res, base_shapes, hires_shapes = timed("baseline", phase_baseline,
+                                                torch, decode_pool)
+    maxima = timed("kernel-4k", phase_kernel_maxima, torch, hires_shapes)
     by_path = {"all_intra": _by_mode_n(shapes),
                "random_access": _by_mode_n(inter_shapes),
                "ra_inter_frames": _by_mode_n(inter_frame_shapes),
@@ -2214,7 +2440,8 @@ def main() -> int:
                "rc": _by_mode_n(rc_shapes),
                "entry": _by_mode_n(entry_shapes),
                "app": _by_mode_n(app_shapes),
-               "multichip": _by_mode_n(mc_shapes)}
+               "multichip": _by_mode_n(mc_shapes),
+               "baseline": _by_mode_n(base_shapes)}
     shapes = collections.Counter(shapes)
     shapes.update(inter_shapes)
     shapes.update(dir_shapes)
@@ -2225,10 +2452,10 @@ def main() -> int:
     shapes.update(entry_shapes)
     shapes.update(app_shapes)
     shapes.update(mc_shapes)
+    shapes.update(base_shapes)
     kernels = timed("kernels", kernel_entries, torch, by_path, shapes,
                     env["int32_ops_per_s"])
     group_prof = timed("inter-profile", phase_group_profile, torch, biggest)
-    key_prof = timed("profile", phase_keyframe_profile, torch, replay)
     prof = timed("wave-profile", phase_profile, torch, np)
     dir_prof = timed("directional-profile", phase_directional_profile,
                      torch, dir_groups)
@@ -2236,6 +2463,8 @@ def main() -> int:
                     pf_replay)
     search_prof = timed("search-profile", phase_group_profile, torch,
                         search_group, "search-profile")
+    timed("baseline-decode", phase_baseline_decode, base_res)
+    decode_pool.shutdown()
     phase_s["total"] = time.perf_counter() - t_start
     print("[time] " + ", ".join(f"{k} {v:.2f} s" for k, v in phase_s.items())
           + " (after the imports)", flush=True)
@@ -2246,9 +2475,9 @@ def main() -> int:
                    "directional": dir_res, "postfilter": pf_res,
                    "search": search_res, "aq": aq_res, "rc": rc_res,
                    "entry": entry_res, "app": app_res,
-                   "multichip": mc_res,
+                   "multichip": mc_res, "baseline": base_res,
+                   "kernel_4k_maxima": maxima,
                    "kernels": kernels, "shape_group_profile": group_prof,
-                   "keyframe_program_profile": key_prof,
                    "wave_profile": prof,
                    "directional_group_profile": dir_prof,
                    "postfilter_profile": pf_prof,

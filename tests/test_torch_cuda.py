@@ -1019,3 +1019,65 @@ def test_strip_sharded_inter_on_card_equals_cpu(cuda):
                          shape_group_issue=tiles.make_sharded_shape_group_issue(
                              ["cuda:0"] * 4, strip_w=128))
     assert sharded == encode_ivf(frames, cfg("cpu"))
+
+
+# the JAX package's streams of chip_smoke.BASELINE's operating points cut
+# to their first 2 frames (tests/torch_baseline_goldens.py --frames 2;
+# hires4k and ai480 are 2 frames long already)
+BASELINE_2 = {
+    "hires4k": (1560782, "6f9db4d99a16e0386385c47208491cbc7fe7c9caf5c5d5dfd"
+                         "152752b3097575c"),
+    "vbr10": (12602, "36d579c5d9f76273a76cf6fc1a5984036afff175fd48caffd5d7a"
+                     "08a885139cd"),
+    "ai480": (153374, "2c367518db7d1176acf55f1fccda7c556936cca47336a5ae0a3e"
+                      "24eecc762965"),
+    "ldp720": (175681, "87628262071552d8e66b331485c0dbb20ca8c908663fefcfdd0"
+                       "90af9f4ebb567"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BASELINE_2))
+def test_baseline_point_on_card_equals_the_jax_golden(cuda, name,
+                                                      monkeypatch):
+    """chip_smoke's [baseline] checks at 2-frame depth: the stream equals
+    the JAX package's, the fused kernel runs and the plain trim and rate
+    never, and every key frame runs a fused program (the frame program
+    over all tiles, or the one-tile program) and never the per-wave
+    loop."""
+    import hashlib
+
+    import chip_smoke
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import device_tile as tdt
+    from svt_av1_tpu_torch.pipeline import wavefront as twf
+    from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
+    point = next(p for p in chip_smoke.BASELINE if p[0] == name)
+    _, clip, args, options, tiles = point[:5]
+    frames = chip_smoke._baseline_frames(clip, args)[:2]
+    calls = []
+
+    def spy(name, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            calls.append((name, len(a[1]) if name == "run_tiles_fused"
+                          else out))
+            return out
+        return call
+
+    for obj, nm in ((tdt, "run_tiles_fused"), (tdt, "analyze_tile_fused"),
+                    (tdt, "analyze_tile_fused_mixed"),
+                    (twf.WavefrontIntraEncoder, "_code_wave"),
+                    (tmd, "rdoq_trim_j"), (tmd, "_rate_cdf_j")):
+        monkeypatch.setattr(obj, nm, spy(nm, getattr(obj, nm)))
+    dev.LAUNCHES.clear()
+    ivf = encode_ivf(frames, preset_config(**options, device="cuda"))
+    assert (len(ivf), hashlib.sha256(ivf).hexdigest()) == BASELINE_2[name]
+    assert dev.LAUNCHES["quant_stage_rdoq"] + dev.LAUNCHES["quant_stage"] > 0
+    names = [c[0] for c in calls]
+    assert not {"_code_wave", "rdoq_trim_j", "_rate_cdf_j"} & set(names)
+    keys = 2 if options["intra_period"] == 0 else 1
+    if tiles > 1:
+        assert calls == [("run_tiles_fused", tiles)] * keys
+    else:
+        assert "run_tiles_fused" not in names
+        assert len([c for c in calls if c[1] is True]) == keys

@@ -44,7 +44,7 @@ def test_port_sources_import_no_jax():
     files = sorted(f for f in PORT.rglob("*.py")
                    if (PORT / "build") not in f.parents)
     files += [REPO / "chip_smoke.py", REPO / "quant_ab.py",
-              REPO / "inter_ab.py"]
+              REPO / "inter_ab.py", REPO / "bench_torch.py"]
     assert len(files) > 30
     bad = []
     for f in files:
