@@ -21,6 +21,7 @@ import subprocess
 from pathlib import Path
 
 from svt_av1_tpu_torch.utils.buildlock import build_lock, temp_path
+from svt_av1_tpu_torch.utils.trace import setup_step
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build" / "cuda"
@@ -84,6 +85,8 @@ def build_all(names=None) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if stale."""
-    build_all([name])
-    return ctypes.CDLL(str(library_path(name)))
+    """The kernel library ``name``, built first if stale; recorded as the
+    set-up step ``build_cuda``."""
+    with setup_step("build_cuda") as rec:
+        rec["built"] = bool(build_all([name]))
+        return ctypes.CDLL(str(library_path(name)))

@@ -13,12 +13,14 @@ from pathlib import Path
 
 import numpy as np
 
+from svt_av1_tpu_torch.utils.trace import setup_step
+
 _DATA = Path(__file__).parent / "data" / "default_cdfs.npz"
 
 
 @functools.lru_cache(maxsize=1)
 def default_tables() -> dict:
-    with np.load(_DATA) as z:
+    with setup_step("tables"), np.load(_DATA) as z:
         return {k: z[k] for k in z.files}
 
 

@@ -20,6 +20,7 @@ import subprocess
 from pathlib import Path
 
 from svt_av1_tpu_torch.utils.buildlock import build_lock, temp_path
+from svt_av1_tpu_torch.utils.trace import setup_step
 
 _HERE = Path(__file__).resolve().parent
 _SOURCES = [_HERE / "svt_ec.c", _HERE / "svt_txfm.c", _HERE / "svt_quant.c"]
@@ -30,7 +31,9 @@ c_i16p = ctypes.POINTER(ctypes.c_int16)
 c_u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
-def _build() -> Path:
+def _build(rec: dict = None) -> Path:
+    """The library, compiled first if stale; ``rec["built"]``, where
+    ``rec`` is given, says whether gcc ran."""
     so = _BUILD / "libsvt_native.so"
     stamp = _BUILD / "sources.sha256"
     h = hashlib.sha256()
@@ -49,12 +52,15 @@ def _build() -> Path:
             tmp_stamp = temp_path(stamp)
             tmp_stamp.write_text(digest)
             os.replace(tmp_stamp, stamp)
+    if rec is not None:
+        rec["built"] = stale
     return so
 
 
 @functools.lru_cache(maxsize=1)
 def lib() -> ctypes.CDLL:
-    L = ctypes.CDLL(str(_build()))
+    with setup_step("build_native") as rec:
+        L = ctypes.CDLL(str(_build(rec)))
     L.svt_ec_create.restype = ctypes.c_void_p
     L.svt_ec_create.argtypes = [ctypes.c_int]
     L.svt_ec_free.argtypes = [ctypes.c_void_p]

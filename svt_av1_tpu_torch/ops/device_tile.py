@@ -47,6 +47,7 @@ from svt_av1_tpu_torch.ops import device as dev
 from svt_av1_tpu_torch.ops import device_md as dmd
 from svt_av1_tpu_torch.ops.device import const, take2
 from svt_av1_tpu_torch.pipeline import common
+from svt_av1_tpu_torch.utils.trace import span
 
 
 def _edges_j(recon, xs, ys, bw: int, bh: int, ha, hl, htr, hbl,
@@ -319,19 +320,25 @@ def _run_program(enc, metas, src_planes, shapes, cands):
     pdt = dev.pix_dtype(cfg.bit_depth)
     n_waves = max(m["n_waves"] for m in metas)
     shapes_u = _class_order({sh for m in metas for sh in m["classes"]})
-    lanes, ranges, places, positions = _lanes_of(
-        metas, shapes_u, int(enc.qp.qindex), md_mod.lam_to_q(enc.lam),
-        device)
-    src = [const(np.asarray(p), device).to(pdt) for p in src_planes]
+    with span("tile_lanes"):
+        lanes, ranges, places, positions = _lanes_of(
+            metas, shapes_u, int(enc.qp.qindex), md_mod.lam_to_q(enc.lam),
+            device)
+        src = [const(np.asarray(p), device).to(pdt) for p in src_planes]
     prog = make_mixed_tile_body(
         tuple(shapes_u), n_waves, tuple(map(tuple, cands)), cfg.bit_depth,
         cfg.nfl, bool(cfg.enable_tx_type_search and cfg.base_q_idx > 0),
         bool(cfg.enable_rdoq))
-    recon, outs, steps = prog(src, shapes, lanes, ranges)
+    n_lanes = int(sum(len(p) for p in positions))
+    with span("tile_program", lanes=n_lanes) as rec:
+        recon, outs, steps = prog(src, shapes, lanes, ranges)
+    if rec is not None:
+        rec["class_steps"] = steps
     enc.fused_stats = dict(tiles=len(metas), wave_steps=n_waves,
                            class_steps=steps, classes=len(shapes_u),
-                           lanes=int(sum(len(p) for p in positions)))
-    inject_results(places, positions, outs)
+                           lanes=n_lanes)
+    with span("tile_inject"):
+        inject_results(places, positions, outs)
     return recon
 
 

@@ -21,13 +21,15 @@ from typing import List, Tuple
 
 import numpy as np
 
+from svt_av1_tpu_torch.utils.trace import setup_step
+
 _DATA = Path(__file__).parent / "data" / "grain_tables.npz"
 GAUSS_BITS = 11
 
 
 @functools.lru_cache(maxsize=1)
 def gaussian_sequence() -> np.ndarray:
-    with np.load(_DATA) as z:
+    with setup_step("tables"), np.load(_DATA) as z:
         return z["gaussian_sequence"].copy()
 
 

@@ -16,6 +16,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from svt_av1_tpu_torch.utils.trace import setup_step
+
 _DATA = Path(__file__).parent / "data" / "txfm_networks.npz"
 
 COS_BIT_MIN = 10
@@ -26,7 +28,7 @@ NEW_INV_SQRT2 = 2896
 
 @functools.lru_cache(maxsize=1)
 def _tables() -> dict:
-    with np.load(_DATA) as z:
+    with setup_step("tables"), np.load(_DATA) as z:
         return {k: z[k] for k in z.files}
 
 

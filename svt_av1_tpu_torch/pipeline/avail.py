@@ -61,13 +61,15 @@ from pathlib import Path
 
 import numpy as np
 
+from svt_av1_tpu_torch.utils.trace import setup_step
+
 _AVAIL_DATA = Path(__file__).parent / "data" / "avail_tables.npz"
 _MAX_MIB_LOG2 = 5
 
 
 @functools.lru_cache(maxsize=1)
 def _avail_tables():
-    with np.load(_AVAIL_DATA) as z:
+    with setup_step("tables"), np.load(_AVAIL_DATA) as z:
         return {k: z[k] for k in z.files}
 
 

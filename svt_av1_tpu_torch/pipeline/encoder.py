@@ -46,7 +46,7 @@ from svt_av1_tpu_torch.pipeline.inter import InterFrameEncoder
 from svt_av1_tpu_torch.pipeline.rc import RateControl
 from svt_av1_tpu_torch.pipeline.scd import SceneChangeDetector, luma_stats
 from svt_av1_tpu_torch.pipeline.wavefront import WavefrontIntraEncoder
-from svt_av1_tpu_torch.utils.trace import span
+from svt_av1_tpu_torch.utils.trace import setup_step, span
 
 
 def check_device(device: str) -> torch.device:
@@ -83,6 +83,7 @@ class Encoder:
     SYNTAX_DEPTH = 4
     SYNTAX_DEPTH_RC = 0
 
+    @setup_step("encoder_init")
     def __init__(self, cfg: EncoderConfig, shape_group_issue=None):
         """``shape_group_issue``: a drop-in for
         ``ops.device_inter.shape_group_issue`` that every inter frame of
@@ -206,7 +207,8 @@ class Encoder:
         rate controller (join order is submission order, so the updates
         run in coding order)."""
         fut, is_key, layer = self._syntax_pending.pop(0)
-        tu = fut.result()
+        with span("entropy_wait"):
+            tu = fut.result()
         if self._rc is not None:
             self._rc.update(len(tu) * 8, is_key, layer)
 
@@ -440,8 +442,10 @@ class Encoder:
     def _encode_one(self, y, u, v) -> None:
         cfg = self.cfg
         is_key = self._is_key(self._frame_idx)
-        if self._scd is not None and self._scd.is_scene_change(y):
-            is_key = True  # CRA/IDR on detected scene cut
+        if self._scd is not None:
+            with span("scd"):
+                if self._scd.is_scene_change(y):
+                    is_key = True  # CRA/IDR on detected scene cut
         self._frame_idx += 1
         disp = self._frame_idx - 1
         if cfg.hierarchical_levels == 0:
@@ -645,10 +649,12 @@ class Encoder:
             return None
         tu, recon = self._out.pop(0)
         if not isinstance(tu, bytes):   # pending entropy job
-            tu = tu.result()
+            with span("entropy_wait"):
+                tu = tu.result()
         if recon is not None:
-            recon = [p.cpu().numpy() if isinstance(p, torch.Tensor) else p
-                     for p in recon]
+            with span("recon_fetch"):
+                recon = [p.cpu().numpy() if isinstance(p, torch.Tensor)
+                         else p for p in recon]
             if self._grain is not None:
                 # display-path grain only: reference slots stay grain-free
                 # (spec 7.18.3 applies grain after output;

@@ -29,7 +29,7 @@ def main(argv=None):
     from svt_av1_tpu_torch.ops import device as dev
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
     from svt_av1_tpu_torch.utils.clip import make_clip
-    from svt_av1_tpu_torch.utils.trace import TRACER
+    from svt_av1_tpu_torch.utils.trace import SPAN_KEYS, TRACER
 
     frames = make_clip(w, h, frames=n)
     cfg = preset_config(width=w, height=h, qp=qp, preset=preset,
@@ -67,7 +67,7 @@ def main(argv=None):
     TRACER.enabled = False
     print(json.dumps(TRACER.summary(), indent=1))
     for s in TRACER.spans:
-        if len(s) > 3:   # spans with meta (counts)
+        if set(s) - SPAN_KEYS:   # spans with meta (counts)
             print(json.dumps(s))
     print(json.dumps({"kernel_launches": dict(dev.LAUNCHES)}))
     return nbytes

@@ -106,6 +106,8 @@ def test_cli_equals_the_jax_cli(case, inputs, tmp_path):
     if case == "recon":               # no kernel launches on the CPU
         trace = json.loads((tmp_path / "port" / "t.json").read_text())
         assert trace["spans"] and trace["kernel_launches"] == {}
+        assert set(trace["clock"]) == {"time_ns", "perf_counter_ns"}
+        assert "encoder_init" in {e["stage"] for e in trace["setup"]}
     if case == "parallel_gops":       # closed GOPs: the serial stream
         serial = _run_cli(cli.main, case, inputs, tmp_path / "serial",
                           ["--device", "cpu", "--jobs", "1"], None)

@@ -290,6 +290,26 @@ def test_fused_wave_loop_never_syncs(cuda):
     assert len(ran) == 1 and ran[0] > 0
 
 
+def test_tracer_counts_three_item_calls_as_three_syncs(cuda):
+    """The tracer's synchronisation counter on the card: three ``.item()``
+    calls inside one span count 3 on it, one outside any span counts
+    nowhere, and turning the tracer off restores the sync debug mode."""
+    from svt_av1_tpu_torch.utils.trace import Tracer
+    x = torch.arange(3, device=cuda)
+    mode = torch.cuda.get_sync_debug_mode()
+    tr = Tracer()
+    tr.enabled = True
+    try:
+        with tr.span("items"):
+            got = [x[i].item() for i in range(3)]
+        x[0].item()
+    finally:
+        tr.enabled = False
+    assert got == [0, 1, 2]
+    assert [(s["stage"], s["syncs"]) for s in tr.spans] == [("items", 3)]
+    assert torch.cuda.get_sync_debug_mode() == mode
+
+
 def test_all_intra_fused_encode_on_card_equals_cpu(cuda):
     """2 frames of all-intra at 448x128 with 4 tile columns: each key
     frame through the frame program on the card, never the per-wave
