@@ -56,7 +56,7 @@ def const(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
 
 
 # --- 1D butterfly networks ------------------------------------------------------
-@functools.lru_cache(maxsize=512)
+@functools.lru_cache(maxsize=None)
 def _stage_consts(key: str, cos_bit: int, device: torch.device):
     """Resolve a network into per-stage tensors on ``device``:
     (a, b, w0, w1, btf_mask, clamp_mask, any_clamp)."""
@@ -356,15 +356,27 @@ def _launch_consts(scan: np.ndarray, bd: int, log_scale: int,
     return ptrs
 
 
+def quant_outputs(coeff, rate: bool) -> tuple:
+    """New output tensors of the kernel for ``coeff`` [B, n] int32: (q,
+    dq, eob) and, with ``rate``, rate [B] int64. Separate allocations:
+    the caching allocator's blocks are 16-byte aligned, and splitting one
+    buffer into views costs more host time."""
+    b = coeff.shape[0]
+    eob = coeff.new_empty(b, dtype=torch.int32)
+    out = (torch.empty_like(coeff), torch.empty_like(coeff), eob)
+    return out + (coeff.new_empty(b, dtype=torch.int64),) if rate else out
+
+
 def quant_stage_launch(mode: int, coeff, scan: np.ndarray, qv,
                        log_scale: int, bd: int, lam=None,
-                       rate_ptrs=(None, None, 0)):
+                       rate_ptrs=(None, None, 0), out=None):
     """Launch csrc/quant.cu on CUDA tensors in ``mode`` (QUANT_ONLY,
     QUANT_RATE or QUANT_TRIM_RATE). coeff [B, n] int32 (n in ROW_LENGTHS),
     qv [B] int32, lam [B] int64 (trim); ``rate_ptrs``: (pointer
     to the level-cost table [4, 256] int32, pointer to the eob bits LUT
     [>= n + 1] int32, gq12), for the rate modes. Returns (q, dq, eob)
-    and, with a rate mode, rate [B] int64.
+    and, with a rate mode, rate [B] int64: new tensors, or ``out``, such
+    a tuple as ``quant_outputs`` makes, written in place.
     Raises on what the kernel does not take and on a failed launch;
     never falls back."""
     name = MODE_NAMES[mode]
@@ -392,12 +404,18 @@ def quant_stage_launch(mode: int, coeff, scan: np.ndarray, qv,
     with_rate = mode != QUANT_ONLY
     if with_rate and not (rate_ptrs[0] and rate_ptrs[1]):
         raise ValueError(f"{name}: the rate needs its tables")
-    # separate allocations: the caching allocator's blocks are 16-byte
-    # aligned, and splitting one buffer into views costs more host time
-    q = torch.empty_like(coeff)
-    dq = torch.empty_like(coeff)
-    eob = qv.new_empty(b)
-    rate = qv.new_empty(b, dtype=torch.int64) if with_rate else None
+    if out is None:
+        out = quant_outputs(coeff, with_rate)
+    elif len(out) != 3 + with_rate or any(
+            t.shape != sh or t.dtype != dt or t.device != device
+            or not t.is_contiguous() or t.data_ptr() % 16
+            for t, sh, dt in zip(
+                out, ((b, n), (b, n), (b,), (b,)),
+                (torch.int32, torch.int32, torch.int32, torch.int64))):
+        raise ValueError(f"{name}: out must be like quant_outputs(coeff, "
+                         f"{with_rate})")
+    q, dq, eob = out[:3]
+    rate = out[3] if with_rate else None
     if b:
         params, iscan = _launch_consts(scan, bd, log_scale, device)
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -450,7 +468,7 @@ def intra_sm_weights(n: int) -> np.ndarray:
     return _SM_WEIGHTS[n].astype(np.int32)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _sm_weights(n: int, device: torch.device) -> torch.Tensor:
     return const(intra_sm_weights(n), device)
 

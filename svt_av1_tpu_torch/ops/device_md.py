@@ -29,6 +29,7 @@ import torch
 from svt_av1_tpu_torch.ops import device as dev
 from svt_av1_tpu_torch.ops import intra_dir
 from svt_av1_tpu_torch.ops import quant as quant_host
+from svt_av1_tpu_torch.ops import step_graphs
 from svt_av1_tpu_torch.ops.device import const
 from svt_av1_tpu_torch.pipeline import common, md
 from svt_av1_tpu_torch.utils.blocks import get_scan
@@ -266,10 +267,11 @@ def _stage_consts(plane_type: int, tx_size: int, device: torch.device):
 
 
 def quant_stage_j(coded, scan, qv, log_scale: int, bd: int, tx_size: int,
-                  plane_type: int, rdoq_lam_qv=None):
+                  plane_type: int, rdoq_lam_qv=None, out=None):
     """quant_stage_plain in one launch of the hand-written kernel
     (csrc/quant.cu, fused mode) on a CUDA tensor; it never falls back.
-    On a CPU tensor it runs quant_stage_plain."""
+    On a CPU tensor it runs quant_stage_plain. ``out``: on a CUDA tensor,
+    the output tensors to write (``dev.quant_outputs(coded, True)``)."""
     device = coded.device
     if device.type == "cpu":
         return quant_stage_plain(coded, scan, qv, log_scale, bd, tx_size,
@@ -279,7 +281,24 @@ def quant_stage_j(coded, scan, qv, log_scale: int, bd: int, tx_size: int,
     ptrs = _stage_consts(plane_type, tx_size, device)[0]
     mode = dev.QUANT_RATE if rdoq_lam_qv is None else dev.QUANT_TRIM_RATE
     return dev.quant_stage_launch(mode, coded, scan, qv, log_scale, bd,
-                                  lam=rdoq_lam_qv, rate_ptrs=ptrs)
+                                  lam=rdoq_lam_qv, rate_ptrs=ptrs, out=out)
+
+
+def _quant_stage(*args):
+    """The full loop's call of quant_stage_j (looked up on this module at
+    each call). While this thread captures a class step
+    (``ops/step_graphs.py``) the call is not made: the capture ends its
+    graph here, and each replay makes the call into output tensors that
+    the capture allocated."""
+    cap = step_graphs.capturing()
+    if cap is None:
+        return quant_stage_j(*args)
+    return cap.cut(_replay_quant_stage, args,
+                   dev.quant_outputs(args[0], rate=True))
+
+
+def _replay_quant_stage(*args, out):
+    return quant_stage_j(*args, out=out)
 
 
 def _full_loop_j(srcs, preds, tts, tt_set, tx_size, size, qv, bd,
@@ -304,8 +323,8 @@ def _full_loop_j(srcs, preds, tts, tt_set, tx_size, size, qv, bd,
         coeffs = dev.fwd_tx2d(resid, int(tt), w, h)
         coded = coeffs[:, :ch, :cw].reshape(b, -1).contiguous()
         scan = get_scan(tx_size, int(tt))
-        qc, dq, eo, rt = quant_stage_j(coded, scan, qv, log_scale, bd,
-                                       tx_size, plane_type, rdoq_lam_qv)
+        qc, dq, eo, rt = _quant_stage(coded, scan, qv, log_scale, bd,
+                                      tx_size, plane_type, rdoq_lam_qv)
         full = torch.zeros((b, h, w), dtype=torch.int32, device=device)
         full[:, :ch, :cw] = dq.reshape(-1, ch, cw).to(torch.int32)
         r = dev.inv_tx2d(full, int(tt), w, h, bd=bd)
@@ -341,7 +360,7 @@ def _tt_for_lut(all_cands, plane, tx_size, reduced_tx_set):
     return lut
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=None)
 def make_decide_core(plane: int, cands: tuple, size,
                      bd: int, nfl: int, reduced_tx_set: bool,
                      has_forced: bool, has_cfl: bool, tx_search: bool,
@@ -499,24 +518,31 @@ def make_decide_core(plane: int, cands: tuple, size,
     return forced_fn if has_forced else decide_fn
 
 
+@functools.lru_cache(maxsize=None)
+def _tx_search_consts(tx_size: int, device: torch.device):
+    """(probability bits LUT, the intra tx-type CDF rows of ``tx_size``'s
+    set by mode) on ``device``, int64."""
+    from svt_av1_tpu_torch.entropy import tx_sets
+    from svt_av1_tpu_torch.entropy.cdf import default_tables
+    from svt_av1_tpu_torch.utils.blocks import TX_SIZE_SQR
+    eset = tx_sets.ext_tx_set(tx_size, False, False)
+    table = default_tables()["intra_ext_tx"][eset][int(TX_SIZE_SQR[tx_size])]
+    return (const(md._prob_bits_lut().astype(np.int64), device),
+            const(np.asarray(table).astype(np.int64), device))
+
+
 def _tx_search_j(srcs, preds, out, tx_size, size, qv, bd, lamqv,
                  rdoq: bool = False):
     """Twin of md._luma_tx_search (in-place update of out)."""
     from svt_av1_tpu_torch.entropy import tx_sets
-    from svt_av1_tpu_torch.entropy.cdf import default_tables
-    from svt_av1_tpu_torch.utils.blocks import TX_SIZE_SQR
     b = srcs.shape[0]
     device = srcs.device
     tts = torch.zeros(b, dtype=torch.int32, device=device)
     set_type = tx_sets.ext_tx_set_type(tx_size, False, False)
     if tx_sets.NUM_EXT_TX_SET[set_type] <= 1:
         return tts
-    eset = tx_sets.ext_tx_set(tx_size, False, False)
-    sqr = int(TX_SIZE_SQR[tx_size])
-    table = default_tables()["intra_ext_tx"][eset][sqr]
-    pbl = const(md._prob_bits_lut().astype(np.int64), device)
-    modes = out[0].clamp(0, 12).long()
-    rows = const(table.astype(np.int64), device)[modes]     # [B, nsyms+1]
+    pbl, table = _tx_search_consts(tx_size, device)
+    rows = table[out[0].clamp(0, 12).long()]                 # [B, nsyms+1]
 
     def sig_bits(tt):
         sym = int(tx_sets.EXT_TX_IND[set_type][tt])

@@ -15,8 +15,13 @@ steps are the largest tile's wave count. Availability is tile-local and
 edge replication clamps at each lane's tile bounds, so no lane reads
 another tile's pixels. The JAX program pads waves to powers of two and
 lanes to buckets, with ``mode="drop"`` scatters for the padding; here
-the loop over waves is a plain Python loop over the real lanes, so
-nothing is padded and no integer changes. Leaves below 8 px have no
+the loop over waves is a plain Python loop, and each class step goes
+through the encoder's ``step_graphs.ClassGraphs``: eager on the real
+lanes on the CPU; on the card replayed as CUDA graphs, its lanes padded
+to a power of two by duplicates of the wave's last lane (same position,
+flags, qindex and lambda: the same integers and the same pixels written),
+whose outputs are cut off, so no drop row or scatter index is added and
+no integer changes. Leaves below 8 px have no
 fused program (the JAX package's gate): such tiles take the per-wave
 loop of ``pipeline/wavefront.py``.
 
@@ -45,6 +50,7 @@ import torch
 
 from svt_av1_tpu_torch.ops import device as dev
 from svt_av1_tpu_torch.ops import device_md as dmd
+from svt_av1_tpu_torch.ops import step_graphs
 from svt_av1_tpu_torch.ops.device import const, take2
 from svt_av1_tpu_torch.pipeline import common
 from svt_av1_tpu_torch.utils.trace import span
@@ -121,13 +127,22 @@ def _scatter(plane, xs, ys, blocks, bw: int, bh: int) -> None:
 
 
 # --- fused keyframe tile programs ---------------------------------------------
-# per-lane operands of a class step, uploaded once per frame
+# per-lane operands of a class step, the rows of its packed int64 lanes
+# [len(LANE_KEYS), B], uploaded once per frame
 LANE_KEYS = ("xs", "ys", "ha", "hl", "htr", "hbl", "mwv", "mhv", "qv",
              "lamqv")
 _FLAGS = ("ha", "hl", "htr", "hbl")
 # per-lane decisions, stacked into one int64 row each for the download
 SMALL_KEYS = ("y_mode", "y_delta", "uv_mode", "uv_delta", "alpha_u",
               "alpha_v", "y_tx_type", "eob_y", "eob_u", "eob_v")
+
+
+def _lane_rows(lanes) -> tuple:
+    """The packed lanes' rows in LANE_KEYS order: the flags as bool, the
+    qindex as int32, the others int64."""
+    return tuple(lanes[i] != 0 if k in _FLAGS else
+                 lanes[i].to(torch.int32) if k == "qv" else
+                 lanes[i].contiguous() for i, k in enumerate(LANE_KEYS))
 
 
 def _class_order(shapes) -> list:
@@ -140,9 +155,9 @@ def _class_order(shapes) -> list:
 def _class_stage(shape: tuple, cands: tuple, bd: int, nfl: int,
                  tx_search: bool, rdoq: bool = False):
     """The step of one (bw, bh) shape class: the Y, U, V decide chain of
-    its lanes of one wave, writing their recon into the int32 planes in
-    place. Returns (small [10, B] int64 in SMALL_KEYS order, qc_y, qc_u,
-    qc_v)."""
+    its lanes of one wave (packed [len(LANE_KEYS), B]), writing their
+    recon into the int32 planes in place. Returns (small [10, B] int64 in
+    SMALL_KEYS order, qc_y, qc_u, qc_v)."""
     bw, bh = shape
     cw_, ch_ = bw >> 1, bh >> 1
     cfl_ok = bw <= 32 and bh <= 32    # cfl_allowed (host wavefront rule)
@@ -156,8 +171,7 @@ def _class_stage(shape: tuple, cands: tuple, bd: int, nfl: int,
                                     cfl_ok, False, rdoq)
 
     def step(recon, src, lanes):
-        xs, ys, ha, hl, htr, hbl, mwv, mhv, qv, lamqv = \
-            (lanes[k] for k in LANE_KEYS)
+        xs, ys, ha, hl, htr, hbl, mwv, mhv, qv, lamqv = _lane_rows(lanes)
         a1, l1 = _edges_j(recon[0], xs, ys, bw, bh, ha, hl, htr, hbl, bd,
                           mwv, mhv)
         srcs = _gather(src[0], xs, ys, bw, bh)
@@ -191,31 +205,38 @@ def make_mixed_tile_body(class_spec: tuple, n_waves: int, cands: tuple,
                          rdoq: bool = False):
     """The wave loop over the classes ``class_spec`` ((bw, bh), ... in
     their order inside a wave). The returned program takes the source
-    planes, the recon plane shapes, per class its lanes (tensors in wave
-    order) and the [start, end) lane range of every wave; it returns the
-    int32 recon planes, per class (small, qc_y, qc_u, qc_v) of its lanes
-    in lane order (the levels narrowed to int16), and the number of class
-    steps it ran. No operation inside the loop waits for the device."""
-    stages = [_class_stage(sh, cands, bd, nfl, tx_search, rdoq)
-              for sh in class_spec]
+    planes, the recon plane shapes, per class its packed lanes (in wave
+    order, each wave's padded as ``_lanes_of`` pads them), per class and
+    wave the (start, end) of its real lanes and the offset of its packed
+    ones, and the runner of the class steps (``step_graphs.ClassGraphs``);
+    it returns the int32 recon planes, per class
+    (small, qc_y, qc_u, qc_v) of its lanes in lane order (the levels
+    narrowed to int16), and the number of class steps it ran. No
+    operation inside the loop waits for the device."""
+    keys = [(sh, cands, bd, nfl, tx_search, rdoq) for sh in class_spec]
+    stages = [_class_stage(*k) for k in keys]
 
-    def program(src, shapes, lanes, ranges):
-        recon = [torch.zeros(s, dtype=torch.int32, device=src[0].device)
-                 for s in shapes]
-        outs = [[] for _ in stages]
+    def program(src, shapes, lanes, ranges, runner):
+        recon = runner.recon(shapes, src[0].device)
+        res = [None] * len(stages)
+        steps = 0
         for w in range(n_waves):
-            for ci, step in enumerate(stages):
-                s, e = ranges[ci][w]
-                if e > s:
-                    outs[ci].append(step(recon, src, {
-                        k: v[s:e] for k, v in lanes[ci].items()}))
-        res = []
-        for per in outs:
-            small = torch.cat([o[0] for o in per], dim=1)
-            res.append((small,) + tuple(
-                torch.cat([o[p] for o in per]).to(torch.int16)
-                for p in (1, 2, 3)))
-        return recon, res, sum(len(per) for per in outs)
+            for ci, stage in enumerate(stages):
+                s, e, off = ranges[ci][w]
+                if e == s:
+                    continue
+                out = runner.step(stage, keys[ci], recon, src, lanes[ci],
+                                  off, e - s)
+                if res[ci] is None:     # lanes of the class, in all waves
+                    n = ranges[ci][-1][1]
+                    res[ci] = [out[0].new_empty((out[0].shape[0], n))] + [
+                        q.new_empty((n,) + q.shape[1:], dtype=torch.int16)
+                        for q in out[1:]]
+                res[ci][0][:, s:e] = out[0][:, :e - s]
+                for acc, q in zip(res[ci][1:], out[1:]):
+                    acc[s:e] = q[:e - s]
+                steps += 1
+        return recon, [tuple(r) for r in res], steps
 
     return program
 
@@ -260,11 +281,15 @@ def _lanes_of(metas, shapes_u, qindex: int, lamq: int, device):
     JAX package's contiguous ``idxw`` packing, entry base ``j0`` per
     tile), then ordered by wave (stable) for the loop. Frame-global
     positions, tile-local availability, each lane's tile right/bottom
-    bound. One upload for all classes. Returns (lanes, ranges, places,
-    positions): places [(meta, tile leaf ids, j0)], positions[j] the
+    bound. Each wave's lanes are followed by their pad to
+    ``step_graphs.lane_bucket`` (copies of its last lane). One upload for
+    all classes. Returns (lanes, ranges, places, positions): lanes per
+    class [len(LANE_KEYS), padded lanes] int64, ranges per class and wave
+    (start, end, offset): the real lanes' loop-order range and their
+    packed offset; places [(meta, tile leaf ids, j0)], positions[j] the
     loop-order lane of packed entry j."""
     n_waves = max(m["n_waves"] for m in metas)
-    rows, ranges, places, positions, sizes = [], [], [], [], []
+    rows, ranges, places, positions = [], [], [], []
     for sh in shapes_u:
         cols, place, j = [], [], 0
         for m in metas:
@@ -285,27 +310,23 @@ def _lanes_of(metas, shapes_u, qindex: int, lamq: int, device):
         order = np.argsort(host[0], kind="stable")
         pos = np.empty(j, np.int64)
         pos[order] = np.arange(j)
-        rows.append(host[1:, order])
         bounds = np.searchsorted(host[0, order], np.arange(n_waves + 1))
-        ranges.append([(int(bounds[w]), int(bounds[w + 1]))
-                       for w in range(n_waves)])
+        idx, rng = [], []
+        for w in range(n_waves):
+            s, e = int(bounds[w]), int(bounds[w + 1])
+            rng.append((s, e, len(idx)))
+            if e > s:
+                idx += list(range(s, e)) \
+                    + [e - 1] * (step_graphs.lane_bucket(e - s) - (e - s))
+        rows.append(host[1:, order[idx]])
+        ranges.append(rng)
         places.append(place)
         positions.append(pos)
-        sizes.append(j)
     packed = const(np.concatenate(rows, axis=1), device)
     lanes, off = [], 0
-    for n in sizes:
-        part = packed[:, off:off + n]
-        off += n
-        lane = {}
-        for i, k in enumerate(LANE_KEYS):
-            if k in _FLAGS:
-                lane[k] = part[i] != 0
-            elif k == "qv":
-                lane[k] = part[i].to(torch.int32)
-            else:
-                lane[k] = part[i].contiguous()
-        lanes.append(lane)
+    for r in rows:
+        lanes.append(packed[:, off:off + r.shape[1]])
+        off += r.shape[1]
     return lanes, ranges, places, positions
 
 
@@ -320,23 +341,27 @@ def _run_program(enc, metas, src_planes, shapes, cands):
     pdt = dev.pix_dtype(cfg.bit_depth)
     n_waves = max(m["n_waves"] for m in metas)
     shapes_u = _class_order({sh for m in metas for sh in m["classes"]})
+    runner = enc.class_graphs
     with span("tile_lanes"):
         lanes, ranges, places, positions = _lanes_of(
             metas, shapes_u, int(enc.qp.qindex), md_mod.lam_to_q(enc.lam),
             device)
-        src = [const(np.asarray(p), device).to(pdt) for p in src_planes]
+        src = runner.source(src_planes, pdt, device)
     prog = make_mixed_tile_body(
         tuple(shapes_u), n_waves, tuple(map(tuple, cands)), cfg.bit_depth,
         cfg.nfl, bool(cfg.enable_tx_type_search and cfg.base_q_idx > 0),
         bool(cfg.enable_rdoq))
     n_lanes = int(sum(len(p) for p in positions))
+    before = runner.counts()
     with span("tile_program", lanes=n_lanes) as rec:
-        recon, outs, steps = prog(src, shapes, lanes, ranges)
+        recon, outs, steps = prog(src, shapes, lanes, ranges, runner)
+    graphs = {k: v - before[k] for k, v in runner.counts().items()}
     if rec is not None:
         rec["class_steps"] = steps
+        rec.update(graphs)
     enc.fused_stats = dict(tiles=len(metas), wave_steps=n_waves,
                            class_steps=steps, classes=len(shapes_u),
-                           lanes=n_lanes)
+                           lanes=n_lanes, **graphs)
     with span("tile_inject"):
         inject_results(places, positions, outs)
     return recon
@@ -477,19 +502,23 @@ def make_tile_body(size: int, cands: tuple, bd: int, nfl: int,
 
     The returned program takes the operands as tensors on one device
     (src_y, src_u, src_v, xsw, ysw, validw, htrw, hblw, idxw [n_waves,
-    wmax], qv, lamqv) and returns (recon y, u, v in ``dev.pix_dtype``,
+    wmax], qv, lamqv) and the runner of its class steps
+    (``step_graphs.ClassGraphs``: one a caller keeps per device serves
+    every tile it runs there) and returns (recon y, u, v in ``dev.pix_dtype``,
     {TILE_BODY_KEYS: [n_leaves + 1, ...]}) on that device, each leaf's
     outputs at its leaf index, narrowed as the JAX program narrows them:
     modes, deltas, alphas and the tx type to int8, eobs and levels to
     int16. The lanes of a wave are its valid prefix (one read of the
-    counts before the loop); the loop runs the real lanes only. The JAX
+    counts before the loop); the loop runs them through the runner,
+    packed and padded as the frame program's. The JAX
     program writes its padding lanes to the extra row n_leaves (an index
     inside its arrays, so its drop mode drops nothing): a padding lane
     decides the block at (0, 0) with no neighbours, which is the first
     leaf's decision, so that row holds the first leaf's outputs whenever
     a wave is not full, and zeros otherwise."""
     S = size
-    step = _class_stage((S, S), cands, bd, nfl, tx_search, rdoq)
+    key = ((S, S), cands, bd, nfl, tx_search, rdoq)
+    step = _class_stage(*key)
     (hy, wy), (hc, wc) = shapes
     mwy, mhy = max_wh[0]
     pdt = dev.pix_dtype(bd)
@@ -497,11 +526,10 @@ def make_tile_body(size: int, cands: tuple, bd: int, nfl: int,
     tx_uv = common.tx_size_for_rect(S >> 1, S >> 1, 1)
 
     def program(src_y, src_u, src_v, xsw, ysw, validw, htrw, hblw, idxw,
-                qv, lamqv):
+                qv, lamqv, *, runner):
         device = src_y.device
-        src = [src_y, src_u, src_v]
-        recon = [torch.zeros(sh, dtype=torch.int32, device=device)
-                 for sh in ((hy, wy), (hc, wc), (hc, wc))]
+        src = runner.source((src_y, src_u, src_v), src_y.dtype, device)
+        recon = runner.recon(((hy, wy), (hc, wc), (hc, wc)), device)
         n1 = n_leaves + 1
         small = torch.zeros((len(SMALL_KEYS), n1), dtype=torch.int64,
                             device=device)
@@ -509,20 +537,24 @@ def make_tile_body(size: int, cands: tuple, bd: int, nfl: int,
                            dtype=torch.int32, device=device)
                for t in (tx_y, tx_uv, tx_uv)]
         counts = validw.sum(dim=1).tolist()
+        full = torch.ones_like(xsw)
+        grid = torch.stack([r.to(torch.int64) for r in (
+            xsw, ysw, ysw > 0, xsw > 0, htrw, hblw, full * mwy, full * mhy,
+            full * qv.to(torch.int64), full * lamqv.to(torch.int64))])
+        idx, waves = [], []
         for w, k in enumerate(counts):
-            if not k:
-                continue
-            xs, ys = xsw[w, :k], ysw[w, :k]
-            full = torch.full((k,), 1, dtype=torch.int64, device=device)
-            out = step(recon, src, dict(
-                xs=xs, ys=ys, ha=ys > 0, hl=xs > 0, htr=htrw[w, :k],
-                hbl=hblw[w, :k], mwv=full * mwy, mhv=full * mhy,
-                qv=full.to(torch.int32) * qv.to(torch.int32),
-                lamqv=full * lamqv.to(torch.int64)))
-            idx = idxw[w, :k]
-            small[:, idx] = out[0]
+            if k:
+                waves.append((w, k, len(idx)))
+                idx += [w * wmax + min(j, k - 1)
+                        for j in range(step_graphs.lane_bucket(k))]
+        lanes = grid.reshape(len(LANE_KEYS), -1)[
+            :, const(np.array(idx, np.int64), device)]
+        for w, k, off in waves:
+            out = runner.step(step, key, recon, src, lanes, off, k)
+            ix = idxw[w, :k]
+            small[:, ix] = out[0][:, :k]
             for q, o in zip(qcs, out[1:]):
-                q[idx] = o.to(torch.int32)
+                q[ix] = o[:k].to(torch.int32)
         if n_leaves and min(counts) < wmax:
             first = idxw[0, 0]
             small[:, n_leaves] = small[:, first]

@@ -75,7 +75,7 @@ def encode_keyframe_tiles_sharded(y, u, v, cfg: EncoderConfig, devices,
     encoder took (``injected``) and its display recon (``recon``)."""
     from svt_av1_tpu_torch.bitstream import obu
     from svt_av1_tpu_torch.ops import device as dev
-    from svt_av1_tpu_torch.ops import device_tile
+    from svt_av1_tpu_torch.ops import device_tile, step_graphs
     from svt_av1_tpu_torch.pipeline import common
     from svt_av1_tpu_torch.pipeline.wavefront import WavefrontIntraEncoder
 
@@ -111,13 +111,16 @@ def encode_keyframe_tiles_sharded(y, u, v, cfg: EncoderConfig, devices,
         args_list.append(meta[1])
     assert len(set(keys)) == 1, "tiles must share one program shape"
     body = device_tile.make_tile_body(*keys[0])
+    # one class-step runner per device: the tiles it runs share its graphs
+    runners = {d: step_graphs.ClassGraphs() for d in devs}
 
     results, halos, tiles = [], [None] * n_dev, []
     for i, (d, args) in enumerate(zip(devs, args_list)):
         before = collections.Counter(dev.LAUNCHES)
         _sync(d)
         t0 = time.perf_counter()
-        ry, ru, rv, out = body(*(torch.as_tensor(a).to(d) for a in args))
+        ry, ru, rv, out = body(*(torch.as_tensor(a).to(d) for a in args),
+                               runner=runners[d])
         _sync(d)
         tiles.append({"device": str(d), "seconds": time.perf_counter() - t0,
                       "launches": dict(collections.Counter(dev.LAUNCHES)

@@ -40,6 +40,7 @@ from svt_av1_tpu_torch.config import EncoderConfig, RateControlMode
 from svt_av1_tpu_torch.entropy.inter_modes import (ALTREF2_FRAME,
                                                    GOLDEN_FRAME, LAST2_FRAME)
 from svt_av1_tpu_torch.ops import grain as grain_ops
+from svt_av1_tpu_torch.ops import step_graphs
 from svt_av1_tpu_torch.pipeline import analysis, common, tmvp
 from svt_av1_tpu_torch.pipeline.common import pad_to_multiple
 from svt_av1_tpu_torch.pipeline.inter import InterFrameEncoder
@@ -128,6 +129,9 @@ class Encoder:
         self._la_prev = None
         self._la_weight = 1.0
         self._prev_luma = None       # previous coded source luma (AQ hint)
+        # the key frames' class-step runner: CUDA graphs and buffers of
+        # this encoder alone (ops/step_graphs.py)
+        self._class_graphs = step_graphs.ClassGraphs()
         self._tpl_prev_luma = None   # the luma the next mini-GOP refs
         self._tpl_maps = {}          # display index -> TPL offset map
         self._rc = None
@@ -224,6 +228,7 @@ class Encoder:
         if qv is not None:
             cfg = dataclasses.replace(cfg, qp=qv, qindex_override=None)
         enc = WavefrontIntraEncoder(cfg, film_grain=self._grain)
+        enc.class_graphs = self._class_graphs
         enc.aq_prev_luma = self._aq_prev(y)
         self._key_disp = disp_idx
         hint = 0

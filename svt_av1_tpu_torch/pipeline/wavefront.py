@@ -39,6 +39,7 @@ from svt_av1_tpu_torch.ops import intra as intra_ops
 from svt_av1_tpu_torch.ops import intra_dir
 from svt_av1_tpu_torch.ops import device_tile
 from svt_av1_tpu_torch.ops import quant as quant_ops
+from svt_av1_tpu_torch.ops import step_graphs
 from svt_av1_tpu_torch.ops.device import dlf_search_apply_dev
 from svt_av1_tpu_torch.ops.device_md import decide_block_batch_dev
 from svt_av1_tpu_torch.pipeline import (analysis, avail, common,
@@ -81,6 +82,10 @@ class WavefrontIntraEncoder:
         # (True when it filled the tile) in place of analyze_tile_fused
         self._no_defer = False
         self.tile_hook = None
+        # the fused programs' class-step runner (its CUDA graphs and
+        # buffers); the Encoder puts its own on each key frame's encoder,
+        # so that graphs captured in one key frame serve the next
+        self.class_graphs = step_graphs.ClassGraphs()
 
     # --- batched wave compute on the torch device ------------------------------
     def _wave_compute(self, plane: int, parts, size, cands, forced=None,

@@ -227,8 +227,9 @@ def test_rdoq_first_minimum_on_card(cuda):
 
 def test_fused_frame_program_on_card_equals_cpu(cuda):
     """The frame-batched keyframe program (4 tile columns at 448x128) on
-    cuda equals it on the CPU: every tile's decisions, eobs and
-    coefficients, and the recon planes."""
+    cuda, its class steps replayed as CUDA graphs, equals it on the CPU:
+    every tile's decisions, eobs and coefficients, and the recon
+    planes."""
     from svt_av1_tpu_torch.app.cli import preset_config
     from svt_av1_tpu_torch.ops import device_tile as tdt
     from svt_av1_tpu_torch.utils.clip import make_clip
@@ -239,8 +240,11 @@ def test_fused_frame_program_on_card_equals_cpu(cuda):
 
     def spy(enc, metas, *a):
         runs.append(len(metas))
-        return orig(enc, metas, *a)
+        out = orig(enc, metas, *a)
+        stats.append(enc.fused_stats)
+        return out
 
+    stats = []
     tdt.run_tiles_fused = spy
     try:
         got, want = (keyframe_state(frame, dataclasses.replace(
@@ -251,6 +255,11 @@ def test_fused_frame_program_on_card_equals_cpu(cuda):
         tdt.run_tiles_fused = orig
     assert runs == [4, 4]
     assert_same_state(got, want)
+    # on the card every class step replayed or captured a graph
+    card = stats[0]
+    assert card["graph_replays"] + card["graph_captures"] == \
+        card["class_steps"] == stats[1]["class_steps"]
+    assert card["graph_captures"] and card["graph_replays"]
 
 
 def test_fused_wave_loop_never_syncs(cuda):
@@ -288,6 +297,182 @@ def test_fused_wave_loop_never_syncs(cuda):
     finally:
         tdt.make_mixed_tile_body = orig
     assert len(ran) == 1 and ran[0] > 0
+
+
+def _graphed_intra(frames, device, encoders=1):
+    """All-intra preset 5 at 848x480 through ``encoders`` Encoders in
+    turn on ``device``: per Encoder its TUs, and per key frame its
+    program's counts (``fused_stats``), the calls into
+    ``device_md.quant_stage_j`` inside the program and the (class, lane
+    bucket) keys its class steps met; and the Encoders."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import device_tile as tdt
+    from svt_av1_tpu_torch.ops import step_graphs
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    cfg = preset_config(width=848, height=480, preset=5, intra_period=0,
+                        device=device)
+    frame, calls = [], [0]
+    saved = (tdt._run_program, tmd.quant_stage_j, step_graphs.ClassGraphs.step)
+
+    def program(enc, *a):
+        calls[0] = 0
+        frame.append({"keys": set()})
+        before = sum(dev.LAUNCHES.values())
+        out = saved[0](enc, *a)
+        frame[-1].update(stats=dict(enc.fused_stats), quant_calls=calls[0],
+                         launches=sum(dev.LAUNCHES.values()) - before)
+        return out
+
+    def quant(*a, **k):
+        calls[0] += 1
+        return saved[1](*a, **k)
+
+    def step(self, stage, key, recon, src, lanes, off, n):
+        frame[-1]["keys"].add((key[0], step_graphs.lane_bucket(n)))
+        return saved[2](self, stage, key, recon, src, lanes, off, n)
+
+    tdt._run_program, tmd.quant_stage_j = program, quant
+    step_graphs.ClassGraphs.step = step
+    runs = []
+    try:
+        for _ in range(encoders):
+            enc, tus, frame[:] = Encoder(cfg), [], []
+            for f in frames:
+                enc.send_picture(*f)
+                while (pkt := enc.get_packet()) is not None:
+                    tus.append(pkt[0])
+            enc.flush()
+            while (pkt := enc.get_packet()) is not None:
+                tus.append(pkt[0])
+            runs.append((tus, list(frame), enc))
+    finally:
+        (tdt._run_program, tmd.quant_stage_j,
+         step_graphs.ClassGraphs.step) = saved
+    return runs
+
+
+def test_graphed_class_steps_on_card_equal_cpu(cuda):
+    """2 frames of 848x480 all-intra (one tile, the mixed program): the
+    class steps replay CUDA graphs on the card and the TUs equal the
+    CPU's, whose steps run eagerly. Per frame the program makes as many
+    calls into quant_stage_j on the card as on the CPU (the kernel stays
+    a host call of its wrapper), every class step is a replay or a
+    capture, and the captures are the (class, lane bucket) keys the
+    Encoder meets for the first time: the second frame meets keys the
+    first did not (its left half is flat: 64x64 leaves, a class the first
+    frame lacks). Each call launches the kernel once. A second Encoder in the same process captures its own
+    graphs into buffers of its own and codes the same TUs."""
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=848, h=480, frames=2, seed=3)
+    y, u, v = frames[1]
+    y = y.copy()
+    y[:, :424] = 128
+    frames[1] = (y, u, v)
+    (cpu_tus, cpu_frames, _), = _graphed_intra(frames, "cpu")
+    runs = _graphed_intra(frames, "cuda", encoders=2)
+    seen_before = set()
+    for f, want in zip(runs[0][1], cpu_frames):
+        st = f["stats"]
+        assert f["quant_calls"] == want["quant_calls"] > 0
+        assert f["launches"] == f["quant_calls"] and want["launches"] == 0
+        assert f["keys"] == want["keys"]
+        assert st["graph_replays"] + st["graph_captures"] == \
+            st["class_steps"] == want["stats"]["class_steps"]
+        assert st["graph_captures"] == len(f["keys"] - seen_before)
+        assert want["stats"]["graph_replays"] == \
+            want["stats"]["graph_captures"] == 0
+        seen_before |= f["keys"]
+    first, second = runs[0][1]
+    assert second["stats"]["graph_captures"] > 0
+    assert second["stats"]["graph_replays"] > 0
+    assert runs[1][1][0]["stats"] == first["stats"]
+    for tus, _, _ in runs:
+        assert tus == cpu_tus
+    bufs = [{t.data_ptr() for b in enc._class_graphs._planes.values()
+             for t in b} for _, _, enc in runs]
+    assert bufs[0] and bufs[1] and not bufs[0] & bufs[1]
+
+
+def test_graphed_class_steps_with_the_tx_search_on_card_equal_cpu(cuda):
+    """2 frames of preset-5 all-intra at 448x128 on 4 tile columns with
+    the luma tx-type search on: the search inside the class step (its
+    tables cached before a capture) replays as graphs and the stream
+    equals the CPU's."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import device_tile as tdt
+    from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=128, frames=2, seed=3)
+    stats, orig = [], tdt._run_program
+
+    def spy(enc, *a):
+        out = orig(enc, *a)
+        stats.append(enc.fused_stats)
+        return out
+
+    tdt._run_program = spy
+    try:
+        ivf = {d: encode_ivf(frames, dataclasses.replace(preset_config(
+            width=448, height=128, preset=5, intra_period=0, tile_columns=2,
+            device=d), enable_tx_type_search=True)) for d in ("cuda", "cpu")}
+    finally:
+        tdt._run_program = orig
+    assert ivf["cuda"] == ivf["cpu"]
+    card = stats[:2]
+    assert all(st["graph_replays"] + st["graph_captures"]
+               == st["class_steps"] > 0 for st in card)
+    assert sum(st["graph_replays"] for st in card) > 0
+
+
+def test_capture_outlasts_a_collection_of_another_encoders_graphs(cuda):
+    """A garbage cycle holding one Encoder's class-step graphs, made as
+    a second Encoder begins a capture, with the collector set to collect
+    the youngest objects at every allocation: no collection runs inside
+    the capture (CUDA
+    forbids destroying a graph on a capturing thread), so it completes
+    and the second Encoder's TUs equal the first's."""
+    import gc
+    from svt_av1_tpu_torch.app.cli import preset_config
+    from svt_av1_tpu_torch.ops import step_graphs
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    from svt_av1_tpu_torch.utils.clip import make_clip
+    frames = make_clip(w=448, h=128, frames=1, seed=3)
+    cfg = preset_config(width=448, height=128, preset=5, intra_period=0,
+                        tile_columns=2, device="cuda")
+
+    def encode(enc):
+        tus = []
+        for f in frames:
+            enc.send_picture(*f)
+        enc.flush()
+        while (pkt := enc.get_packet()) is not None:
+            tus.append(pkt[0])
+        return tus
+
+    first = Encoder(cfg)
+    want = encode(first)
+    garbage = [first._class_graphs]
+    first._class_graphs = None
+    assert garbage[0].graph_captures
+    begin = step_graphs._Capture.begin
+
+    def begin_beside_garbage(self):
+        if garbage:
+            box = [garbage.pop()]
+            box.append(box)
+        begin(self)
+
+    second = Encoder(cfg)
+    threshold = gc.get_threshold()
+    step_graphs._Capture.begin = begin_beside_garbage
+    gc.set_threshold(1, 1000, 1000)     # the youngest generation: always
+    try:
+        got = encode(second)
+    finally:
+        gc.set_threshold(*threshold)
+        step_graphs._Capture.begin = begin
+    assert not garbage and second._class_graphs.graph_captures
+    assert got == want
 
 
 def test_tracer_counts_three_item_calls_as_three_syncs(cuda):

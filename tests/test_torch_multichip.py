@@ -32,6 +32,7 @@ from svt_av1_tpu.pipeline.wavefront import \
     encode_keyframe_wavefront as jax_keyframe
 from svt_av1_tpu_torch.convert import config_from_jax
 from svt_av1_tpu_torch.ops import device_tile as tdt
+from svt_av1_tpu_torch.ops import step_graphs
 from svt_av1_tpu_torch.parallel import tiles
 from svt_av1_tpu_torch.pipeline.common import intra_candidates
 from svt_av1_tpu_torch.pipeline.decode import decode_ivf
@@ -177,7 +178,8 @@ def test_make_tile_body_equals_the_class_step_program():
                       enumerate(enc._leaves())}
     key, args = tdt.tile_body_operands(enc, intra_candidates(cfg))
     ry, ru, rv, out = tdt.make_tile_body(*key)(
-        *(torch.as_tensor(a) for a in args))
+        *(torch.as_tensor(a) for a in args),
+        runner=step_graphs.ClassGraphs())
     n = key[7]
     names = {"y_tt": "y_tx_type"}
     for k in tdt.TILE_BODY_KEYS[:7]:

@@ -18,15 +18,19 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                        _disable_current_modes)
 
 from svt_av1_tpu.app.cli import preset_config as jax_preset_config
 from svt_av1_tpu.ops import device_tile as jdt
 from svt_av1_tpu.pipeline import common as jcommon
 from svt_av1_tpu.pipeline import wavefront as jwf
 from svt_av1_tpu.pipeline.encoder import encode_ivf as jax_encode_ivf
+from svt_av1_tpu_torch.app.cli import preset_config
 from svt_av1_tpu_torch.convert import config_from_jax
 from svt_av1_tpu_torch.ops import device_tile as tdt
 from svt_av1_tpu_torch.ops import intra as intra_ops
+from svt_av1_tpu_torch.ops import step_graphs
 from svt_av1_tpu_torch.pipeline import common
 from svt_av1_tpu_torch.pipeline import wavefront as twf
 from svt_av1_tpu_torch.pipeline.encoder import encode_ivf
@@ -345,3 +349,192 @@ def test_syntax_resolves_pending_coefficients():
             st["qcoeff"][p][:] = [(pend, i) for i in range(len(qcs))]
     got, _ = enc.package_syntax()
     assert got == want
+
+
+# --- the class step on padded lanes (the card's CUDA-graph buckets) ----------
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 8, 9, 64, 65])
+def test_lane_bucket_is_the_next_power_of_two(n):
+    want = {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 7: 8, 8: 8, 9: 16, 64: 64,
+            65: 128}[n]
+    assert step_graphs.lane_bucket(n) == want
+
+
+def _step_planes(rng, w=256, h=192):
+    """int32 recon planes (Y, U, V) and source planes of a w x h frame."""
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    recon = [torch.as_tensor(rng.integers(0, 256, s).astype(np.int32))
+             for s in shapes]
+    src = [torch.as_tensor(rng.integers(0, 256, s).astype(np.uint8))
+           for s in shapes]
+    return recon, src
+
+
+def _step_lanes(rng, shape, n, w=256, h=192):
+    """Packed lanes [len(LANE_KEYS), n] of n disjoint blocks of ``shape``:
+    per lane its own flags, tile bounds, qindex and lambda."""
+    bw, bh = shape
+    cells = rng.permutation((w // bw) * (h // bh))[:n]
+    xs, ys = (cells % (w // bw)) * bw, (cells // (w // bw)) * bh
+    mw = np.minimum(w, xs + bw + bw * rng.integers(0, 3, n))
+    mh = np.minimum(h, ys + bh + bh * rng.integers(0, 3, n))
+    qv = rng.integers(20, 240, n)
+    lam = rng.integers(1 << 10, 1 << 20, n)
+    return torch.as_tensor(np.stack([
+        xs, ys, ys > 0, xs > 0, rng.integers(0, 2, n), rng.integers(0, 2, n),
+        mw, mh, qv, lam]).astype(np.int64))
+
+
+@pytest.mark.parametrize("preset,shape", [(5, (16, 16)), (5, (32, 32)),
+                                          (5, (64, 64)), (3, (32, 16))])
+def test_class_step_on_padded_lanes_equals_real_lanes(preset, shape):
+    """``_class_stage``'s step on a wave's real lanes and on the same
+    lanes padded to their bucket with copies of the last lane (as the
+    card's graphs run them): the real lanes' outputs and all three recon
+    planes are equal, and each pad lane's outputs are the last lane's.
+    Preset 5's square classes and a rect class of preset 3."""
+    cfg = preset_config(width=256, height=192, preset=preset,
+                        intra_period=0, device="cpu")
+    step = tdt._class_stage(shape, tuple(map(tuple, common.intra_candidates(
+        cfg))), 8, cfg.nfl, False, bool(cfg.enable_rdoq))
+    rng = np.random.default_rng(sum(shape) + preset)
+    for n in (3, 5, 6):
+        recon, src = _step_planes(rng)
+        lanes = _step_lanes(rng, shape, n)
+        nb = step_graphs.lane_bucket(n)
+        padded = torch.cat([lanes, lanes[:, -1:].expand(-1, nb - n)], 1)
+        want_recon = [p.clone() for p in recon]
+        want = step(want_recon, src, lanes)
+        got = step(recon, src, padded)
+        for g, w_ in zip(got, want):
+            cut = g[:, :n] if g.dim() == 2 else g[:n]
+            assert torch.equal(cut, w_)
+            pad = g[:, n:] if g.dim() == 2 else g[n:]
+            last = w_[:, -1:] if w_.dim() == 2 else w_[-1:]
+            assert torch.equal(pad, last.expand_as(pad))
+        for g, w_ in zip(recon, want_recon):
+            assert torch.equal(g, w_)
+
+
+def test_lanes_of_pads_each_wave_with_its_last_lane():
+    """``_lanes_of``: per class and wave, the real lanes in loop order at
+    their offset, followed by copies of the wave's last lane up to its
+    bucket; the real lanes' ranges cover the class in wave order."""
+    mk = dict(n_waves=4, rect=(0, 0, 32, 64), arrays=None)
+    wave = np.array([2, 0, 0, 0, 2, 3, 0, 3, 3, 3, 3])
+    n = len(wave)
+    ent = dict(wave=wave, r=np.arange(n) * 4, c=np.arange(n) * 4,
+               li=np.arange(n), htr=np.arange(n) % 2 == 0,
+               hbl=np.arange(n) % 3 == 0)
+    metas = [dict(mk, classes={(16, 16): ent})]
+    lanes, ranges, _, positions = tdt._lanes_of(metas, [(16, 16)], 90, 777,
+                                                "cpu")
+    lanes, rng_ = lanes[0], ranges[0]
+    order = np.argsort(wave, kind="stable")
+    assert np.array_equal(positions[0][order], np.arange(n))
+    assert [(s, e) for s, e, _ in rng_] == [(0, 4), (4, 4), (4, 6), (6, 11)]
+    for s, e, off in rng_:
+        if e == s:
+            continue
+        nb = step_graphs.lane_bucket(e - s)
+        real = lanes[:, off:off + e - s]
+        assert torch.equal(real[0], torch.as_tensor(ent["c"][order[s:e]] * 4))
+        assert torch.equal(real[1], torch.as_tensor(ent["r"][order[s:e]] * 4))
+        assert torch.equal(lanes[:, off + e - s:off + nb],
+                           real[:, -1:].expand(-1, nb - (e - s)))
+    assert lanes.shape[1] == 4 + 2 + 8
+    assert set(lanes[8].tolist()) == {90} and set(lanes[9].tolist()) == {777}
+
+
+class _Reads(TorchDispatchMode):
+    """The storages of the tensors that operations read and that no
+    operation under the mode made."""
+
+    def __init__(self):
+        super().__init__()
+        self.made, self.read = set(), {}
+
+    def _see(self, t):
+        if isinstance(t, torch.Tensor):
+            p = t.untyped_storage().data_ptr()
+            if p not in self.made and t.dim():    # 0-dim: wrapped scalars
+                self.read.setdefault(p, t)
+        elif isinstance(t, (list, tuple)):
+            for x in t:
+                self._see(x)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self._see(args)
+        self._see(tuple((kwargs or {}).values()))
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (list, tuple)) else (out,):
+            if isinstance(t, torch.Tensor):
+                self.made.add(t.untyped_storage().data_ptr())
+        return out
+
+
+def _port_caches():
+    """Every bounded functools.lru_cache of the port's modules."""
+    import functools
+    import importlib
+    import pkgutil
+
+    import svt_av1_tpu_torch
+    out = []
+    for m in pkgutil.walk_packages(svt_av1_tpu_torch.__path__,
+                                   "svt_av1_tpu_torch."):
+        if m.name.endswith("__main__"):
+            continue
+        mod = importlib.import_module(m.name)
+        out += [f for f in vars(mod).values()
+                if isinstance(f, functools._lru_cache_wrapper)
+                and f.__module__ == m.name and f.cache_info().maxsize]
+    return out
+
+
+@pytest.mark.parametrize("preset,shape,tx_search,bd", [
+    (5, (16, 16), False, 8), (5, (32, 32), True, 8), (5, (64, 64), False, 10),
+    (3, (32, 16), False, 8)])
+def test_class_step_reads_no_constant_a_cache_can_free(monkeypatch, preset,
+                                                       shape, tx_search, bd):
+    """The card's graphs read a class step's constants at the addresses
+    they had at capture, and nothing else keeps them: every tensor the
+    step reads besides its planes and lanes is one a step built later (as
+    the next frame builds it) reads too, and clearing any bounded cache
+    of the port changes none of them. The quantization call is left out,
+    as on the card, where it runs between the graphs."""
+    real = tdt.dmd.quant_stage_j
+    mode = []
+
+    def host_call(*a, **k):
+        with _disable_current_modes():
+            out = real(*a, **k)
+        for t in out if mode else ():
+            mode[0].made.add(t.untyped_storage().data_ptr())
+        return out
+
+    monkeypatch.setattr(tdt.dmd, "quant_stage_j", host_call)
+    cfg = preset_config(width=256, height=192, preset=preset,
+                        intra_period=0, device="cpu")
+    key = (shape, tuple(map(tuple, common.intra_candidates(cfg))), bd,
+           cfg.nfl, tx_search, bool(cfg.enable_rdoq))
+    rng = np.random.default_rng(bd + preset)
+    recon, src = _step_planes(rng)
+    lanes = _step_lanes(rng, shape, 5)
+    own = {t.untyped_storage().data_ptr() for t in (*recon, *src, lanes)}
+
+    def reads():
+        step = tdt._class_stage(*key)
+        step(recon, src, lanes)
+        with _Reads() as r:
+            mode[:] = [r]
+            step(recon, src, lanes)
+        mode.clear()
+        return {p: t for p, t in r.read.items() if p not in own}
+
+    first = reads()
+    assert first
+    for cache in _port_caches():
+        cache.cache_clear()
+        # ``first`` holds its tensors, so a rebuilt one has a new address
+        assert reads().keys() == first.keys(), \
+            f"{cache.__module__}.{cache.__qualname__}"

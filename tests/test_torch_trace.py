@@ -164,7 +164,8 @@ def test_a_small_cpu_encode_records_the_new_spans(monkeypatch):
     """Low-delay 64x64, a key frame and two inter frames on the CPU: the
     encoder's entropy waits, scene-change detection and recon download,
     the key-frame program's three phases (``tile_program`` with the
-    program's own class-step count), the set-up record, and the old
+    program's own class-step count and its graph counts), the set-up
+    record, and the old
     spans under their names; only ``entropy`` runs on the worker."""
     from svt_av1_tpu_torch.app.cli import preset_config
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
@@ -206,5 +207,9 @@ def test_a_small_cpu_encode_records_the_new_spans(monkeypatch):
     assert [s["class_steps"] for s in tr.spans
             if s["stage"] == "tile_program"] == steps
     assert steps and all(steps)
+    # the class-step graphs' counts: none on the CPU, where steps are eager
+    assert [(s["graph_replays"], s["graph_captures"], s["pad_lanes"])
+            for s in tr.spans if s["stage"] == "tile_program"] == \
+        [(0, 0, 0)] * len(steps)
     assert {"encoder_init", "tables"} <= {e["stage"] for e in trace.SETUP}
     assert all(e["dur"] >= 0 for e in trace.SETUP)
