@@ -2,8 +2,7 @@
 sequence header, 5.9 frame header, 5.11 tile group).
 
 Scope: a single operating point, no superres, no frame-id numbers, 4:2:0.
-A stream that enables CDEF, loop restoration or film grain is refused: no
-cell's stream uses them.
+A stream that enables film grain is refused: no configuration states it.
 """
 
 from __future__ import annotations
@@ -379,12 +378,10 @@ def parse_sequence_header_obu(payload: bytes) -> SequenceHeader:
     sep_uv_dq = r.read_bit()
     assert not sep_uv_dq
     grain = bool(r.read_bit())
-    for name, on in (("CDEF", cdef), ("loop restoration", restoration),
-                     ("film grain", grain)):
-        if on:
-            raise NotImplementedError(
-                f"the stream enables {name}, which this reference does "
-                f"not decode")
+    if grain:
+        raise NotImplementedError(
+            "the stream enables film grain, which this reference does not "
+            "decode")
     return SequenceHeader(width=width, height=height, bit_depth=bit_depth,
                           use_128x128_superblock=use128,
                           enable_filter_intra=filter_intra,
@@ -477,6 +474,32 @@ def parse_frame_obu(payload: bytes, seq: SequenceHeader, slot_gm=None,
     r.read(3)                 # sharpness
     lf_delta = r.read_bit()
     assert not lf_delta
+    cdef_damping, cdef_bits = 3, 0
+    cdef_y, cdef_uv = (0,) * 8, (0,) * 8
+    if seq.enable_cdef:
+        cdef_damping = r.read(2) + 3
+        cdef_bits = r.read(2)
+        n = 1 << cdef_bits
+        ys, uvs = [], []
+        for _ in range(n):
+            ys.append(r.read(6))
+            uvs.append(r.read(6))
+        cdef_y, cdef_uv = tuple(ys), tuple(uvs)
+    lr_params = None
+    if seq.enable_restoration:
+        _LR_TYPE = {(0, 0): 0, (1, 0): 1, (1, 1): 2, (0, 1): 3}
+        types = tuple(_LR_TYPE[(r.read_bit(), r.read_bit())]
+                      for _ in range(3))
+        size_y, size_uv = 256, 128
+        if any(types):
+            size_y = 64
+            if r.read_bit():
+                size_y = 256 if r.read_bit() else 128
+            size_uv = size_y
+            if types[1] or types[2]:
+                if r.read_bit():
+                    size_uv = size_y >> 1
+        lr_params = (types, size_y, size_uv)
     tx_mode_select = bool(r.read_bit())
     reference_select = False
     if not is_key:
@@ -500,6 +523,9 @@ def parse_frame_obu(payload: bytes, seq: SequenceHeader, slot_gm=None,
                      prev_gm_trans=prev_gm,
                      refresh_frame_flags=refresh_frame_flags,
                      ref_frame_idx=ref_frame_idx,
+                     cdef_damping=cdef_damping, cdef_bits=cdef_bits,
+                     cdef_y_strengths=cdef_y, cdef_uv_strengths=cdef_uv,
+                     lr_params=lr_params,
                      reference_select=reference_select,
                      gm_trans=gm_trans,
                      interp_filter_switchable=interp_switchable,

@@ -12,15 +12,18 @@ import numpy as np
 
 from benchmark.avref.bitstream import obu
 from benchmark.avref.entropy import coeff as coeff_syntax
+from benchmark.avref.entropy import lr as lr_syntax
 from benchmark.avref.entropy import modes as mode_syntax
 from benchmark.avref.entropy import mv as mv_syntax
 from benchmark.avref.entropy.cdf import FrameContext
 from benchmark.avref.entropy.ctx import TileContexts
 from benchmark.avref.entropy.writer import SymbolReader
 from benchmark.avref.pipeline import common, mvp
+from benchmark.avref.ops import cdef as cdef_ops
 from benchmark.avref.ops import intra as intra_ops
 from benchmark.avref.ops import intra_dir
 from benchmark.avref.ops import quant as quant_ops
+from benchmark.avref.ops import restoration as rst_ops
 from benchmark.avref.ops import transforms as tx_ops
 from benchmark.avref.pipeline import avail, common
 from benchmark.avref.utils.blocks import (PARTITION_HORZ, PARTITION_HORZ_4,
@@ -54,6 +57,41 @@ class FrameDecoder:
         self.max_wh = [(self.mi_cols * 4, self.mi_rows * 4),
                        (self.mi_cols * 2, self.mi_rows * 2),
                        (self.mi_cols * 2, self.mi_rows * 2)]
+        self.lr_rinfos = None
+        if fh.lr_params is not None and any(fh.lr_params[0]):
+            types, size_y, size_uv = fh.lr_params
+            self.lr_rinfos = []
+            for p in range(3):
+                ss = 1 if p else 0
+                Wp = (seq.width + ss) >> ss
+                Hp = (seq.height + ss) >> ss
+                size = size_y if p == 0 else size_uv
+                lims, hn, vn = rst_ops.unit_limits(Wp, Hp, size, ss)
+                self.lr_rinfos.append(rst_ops.RestorationInfo(
+                    frame_restoration_type=types[p], unit_size=size,
+                    units=[rst_ops.RestorationUnitInfo()
+                           for _ in lims], hunits=hn, vunits=vn))
+
+    def _read_lr(self, mi_row: int, mi_col: int) -> None:
+        """read_lr mirror (spec 5.11.57) at each superblock
+        (frame-absolute coords: LR units span the frame, spec
+        whole_frame_rect, while syntax rides each tile's coder)."""
+        if self.lr_rinfos is None:
+            return
+        mi_row = mi_row + self.tile_mi_off[0]
+        mi_col = mi_col + self.tile_mi_off[1]
+        for p in range(3):
+            ri = self.lr_rinfos[p]
+            if ri.frame_restoration_type == rst_ops.RESTORE_NONE:
+                continue
+            ss = 1 if p else 0
+            Wp = (self.seq.width + ss) >> ss
+            Hp = (self.seq.height + ss) >> ss
+            for idx in rst_ops.units_in_sb(mi_row, mi_col, 16, Wp, Hp,
+                                           ri.unit_size, ss, ss):
+                ri.units[idx] = lr_syntax.read_lr_unit(
+                    self.r, self.fc, ri.frame_restoration_type,
+                    self.lr_ref[p], p > 0)
 
     def decode_frame(self, tile_payloads):
         frame_recon = self.recon
@@ -64,6 +102,12 @@ class FrameDecoder:
                                   self.fh.tile_rows_log2)
         assert len(rects) == len(tile_payloads)
         frame_leaves = {}
+        frame_skip = np.zeros((frame_mi_rows, frame_mi_cols), dtype=bool)
+        self.cdef_idx_map = None
+        if self.seq.enable_cdef:
+            self.cdef_idx_map = np.full((self.seq.sb_rows,
+                                         self.seq.sb_cols), -1,
+                                        dtype=np.int32)
         # frame-level MVP state: tiles decode through clipped views
         # (spec 7.10.2 scans stop at tile bounds) that stitch into one
         # frame motion field for the TMVP save
@@ -90,6 +134,8 @@ class FrameDecoder:
                 tile0_entropy = (self.fc, self.nmv)
             for (r, c), s in self.leaf_sizes.items():
                 frame_leaves[(r + mi_r0, c + mi_c0)] = s
+            frame_skip[mi_r0:mi_r0 + mi_rs, mi_c0:mi_c0 + mi_cs] = \
+                self.ctxs.mi_skip[:mi_rs, :mi_cs] > 0
         # the state saved into this frame's refresh slots (spec 7.20 /
         # 6.8.2: frame-end update takes tile context_update_tile_id's
         # adapted CDFs unless disabled, in which case the starting state)
@@ -109,6 +155,27 @@ class FrameDecoder:
             dlf.loop_filter_frame(self.recon, frame_leaves, self.mi_rows,
                                   self.mi_cols, self.fh.loop_filter_levels,
                                   bd=self.bd)
+        lr_bounds = None
+        if self.lr_rinfos is not None:
+            lr_bounds = []
+            for p in range(3):
+                ss = 1 if p else 0
+                Hp = (self.seq.height + ss) >> ss
+                Wp = (self.seq.width + ss) >> ss
+                lr_bounds.append(rst_ops.save_deblock_boundary_lines(
+                    self.recon[p][:Hp, :Wp], Hp, ss))
+        if self.seq.enable_cdef:
+            skip8 = frame_skip[0::2, 0::2] & frame_skip[0::2, 1::2] \
+                & frame_skip[1::2, 0::2] & frame_skip[1::2, 1::2]
+            cdef_ops.cdef_frame(self.recon, skip8, self.cdef_idx_map,
+                                self.fh.cdef_y_strengths,
+                                self.fh.cdef_uv_strengths,
+                                self.fh.cdef_damping, self.mi_rows,
+                                self.mi_cols, self.bd)
+        if self.lr_rinfos is not None:
+            rst_ops.loop_restoration_filter_frame(
+                self.recon, self.lr_rinfos, lr_bounds, self.seq.width,
+                self.seq.height, self.seq.bit_depth)
         w, h = self.seq.width, self.seq.height
         return [self.recon[0][:h, :w],
                 self.recon[1][:(h + 1) // 2, :(w + 1) // 2],
@@ -151,6 +218,7 @@ class FrameDecoder:
             self.tile_mi_off[0], self.tile_mi_off[1], self.mi_rows,
             self.mi_cols)
         self.leaf_sizes = {}
+        self.lr_ref = [lr_syntax.LrRefState() for _ in range(3)]
         # per-tile delta-q state reset (spec 6.10.2: CurrentQIndex is
         # re-initialised to base_q_idx at every tile start). The qp cache
         # must be rebuilt from base_q_idx — reusing the running self.qp
@@ -163,6 +231,7 @@ class FrameDecoder:
         for sb_y in range(0, sb_rs * 16, 16):
             for sb_x in range(0, sb_cs * 16, 16):
                 self._read_deltas = self.fh.delta_q_present
+                self._read_lr(sb_y, sb_x)
                 self._decode_partition(sb_y, sb_x, 64)
 
     def _decode_partition(self, mi_row: int, mi_col: int, size: int) -> None:
@@ -217,6 +286,7 @@ class FrameDecoder:
                 self._leaf_part = partition if wh[0] == wh[1] else None
                 skip0 = mode_syntax.read_skip(self.r, self.fc, self.ctxs,
                                               rr, cc)
+                self._read_cdef(rr, cc, skip0)
                 self._read_delta_q(rr, cc, 0, skip0)
                 if self.is_inter:
                     self._decode_inter_tail(rr, cc, wh, skip0)
@@ -229,6 +299,17 @@ class FrameDecoder:
                 # equal-leaf types)
                 self.ctxs.update_partition_ctx(
                     rr, cc, common.rect_bsize(*wh), common.rect_bsize(*wh))
+
+    def _read_cdef(self, mi_row: int, mi_col: int, skip: int) -> None:
+        """read_cdef mirror: cdef_idx literal at the first non-skip block
+        of each 64x64."""
+        if self.cdef_idx_map is None or skip:
+            return
+        sbr = (mi_row + self.tile_mi_off[0]) // 16
+        sbc = (mi_col + self.tile_mi_off[1]) // 16
+        if self.cdef_idx_map[sbr, sbc] == -1:
+            self.cdef_idx_map[sbr, sbc] = self.r.read_literal(
+                self.fh.cdef_bits)
 
     def _leaf_vert_a(self) -> bool:
         """Current leaf is a square member of a PARTITION_VERT_A parent
@@ -248,6 +329,7 @@ class FrameDecoder:
                             size: int) -> None:
         skip = mode_syntax.read_skip(self.r, self.fc, self.ctxs,
                                      mi_row, mi_col)
+        self._read_cdef(mi_row, mi_col, skip)
         self._read_delta_q(mi_row, mi_col, size, skip)
         self._decode_inter_tail(mi_row, mi_col, size, skip)
 
@@ -481,6 +563,7 @@ class FrameDecoder:
                             size: int) -> None:
         skip = mode_syntax.read_skip(self.r, self.fc, self.ctxs,
                                      mi_row, mi_col)
+        self._read_cdef(mi_row, mi_col, skip)
         self._read_delta_q(mi_row, mi_col, size, skip)
         self._decode_intra_tail(mi_row, mi_col, size, skip, kf=True)
 

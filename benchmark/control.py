@@ -3,9 +3,9 @@ program by patching its ``Encoder`` from here. The benchmark's own runs
 never load this module.
 
 The control breaks the two guarantees the configurations state:
-- ``recon_7bit``: the reconstruction the encoder reports is computed to 7
-  bits (its lowest bit cleared), the precision below the stated 8, so it
-  no longer equals what the stream decodes to;
+- ``recon_7bit``: the reconstruction the encoder reports is computed to
+  one bit below the stated depth (its lowest bit cleared: 7 bits of 8, 9
+  of 10), so it no longer equals what the stream decodes to;
 - ``stale_source``: each frame is coded from the previous frame's source,
   so a frame no longer carries its own picture (the encoder's state for
   the new frame left unchanged).
@@ -54,7 +54,7 @@ def recon_7bit():
             pkt = orig(self)
             if pkt is None or pkt[1] is None:
                 return pkt
-            return pkt[0], [p & 0xFE for p in pkt[1]]
+            return pkt[0], [p - (p & 1) for p in pkt[1]]
         return get_packet
     return _patched(_encoder(), "get_packet", make)
 

@@ -1,7 +1,8 @@
 """One run of one cell of ``BENCHMARK.json``, in one process.
 
 A cell names a configuration (``benchmark/configs/<name>.json``: the
-encoder's options, the limits of the check) and a traffic mix
+encoder's options, optionally ``encoder_fields`` that no preset sets,
+the limits of the check) and a traffic mix
 (``benchmark/traffic/<name>.json``: the stream's parameters). A metric is
 a reader of its own (``benchmark/metrics/<name>.py``, ``read(run)``)
 that returns nothing where it finds nothing to read. So a later change
@@ -24,6 +25,7 @@ frames) ends with the card synchronised; then the window:
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -54,6 +56,25 @@ def load_cell(name: str, manifest: dict, root: Path = ROOT):
     traffic = json.loads(
         (BENCH / "traffic" / f"{cell['traffic']}.json").read_text())
     return cell, config, traffic
+
+
+def encoder_config(config: dict, device: str):
+    """The ``EncoderConfig`` a configuration file states: its ``encoder``
+    options (the CLI's names) through ``preset_config``, then its
+    optional ``encoder_fields``, fields of ``EncoderConfig`` by name
+    (lists as tuples), set with ``dataclasses.replace``. A name that is
+    no field, or ``device``, which is the harness's, stops the run."""
+    from svt_av1_tpu_torch.app.cli import preset_config
+    cfg = preset_config(**config["encoder"], device=device)
+    fields = config.get("encoder_fields", {})
+    names = {f.name for f in dataclasses.fields(cfg)} - {"device"}
+    unknown = sorted(set(fields) - names)
+    if unknown:
+        raise RunError(f"encoder_fields names no field of EncoderConfig "
+                       f"that a configuration may set: {unknown}")
+    return dataclasses.replace(cfg, **{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in fields.items()})
 
 
 def metrics_of(cell: str, manifest: dict, trace: bool) -> list:
@@ -110,7 +131,6 @@ def run_cell(config: dict, traffic: dict, seed: int, seconds: float,
     failed."""
     import torch
 
-    from svt_av1_tpu_torch.app.cli import preset_config
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
     from svt_av1_tpu_torch.utils import trace as program_trace
 
@@ -126,8 +146,9 @@ def run_cell(config: dict, traffic: dict, seed: int, seconds: float,
         if cuda:
             torch.cuda.synchronize(dev)
 
-    cfg = preset_config(**config["encoder"], device=device)
-    stream = Stream(cfg.width, cfg.height, seed, **traffic["stream"])
+    cfg = encoder_config(config, device)
+    stream = Stream(cfg.width, cfg.height, seed, bit_depth=cfg.bit_depth,
+                    **traffic["stream"])
     if cuda:
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -205,7 +226,7 @@ def run_cell(config: dict, traffic: dict, seed: int, seconds: float,
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    res = reference.check(judged, sources, setup_shown)
+    res = reference.check(judged, sources, setup_shown, cfg.bit_depth)
     t_ref = time.perf_counter() - t_ref
     run.psnr = [f[2] for f in res["frames"] if f[2] is not None]
     limits = config["limits"]

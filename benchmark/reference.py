@@ -11,7 +11,9 @@ stream is self-consistent under a snapshot of that syntax code, and
 catches any later change to the encoder that breaks it; a fault that the
 encoder and the snapshot share passes. It is not an independent AV1
 decoder. The luma PSNR of the decode against the benchmark's own source
-is the part that does not rest on the program's code.
+is the part that does not rest on the program's code; it is taken at the
+peak of the bit depth the configuration states, and a stream whose
+sequence header states another depth decodes as wholly wrong.
 
 It imports NumPy and the frozen copy only: nothing of the program, of
 JAX or of the JAX package.
@@ -46,15 +48,18 @@ def _differ(a, b) -> int:
                else max(x.size, y.size) for x, y in zip(a, b))
 
 
-def check(packets, sources: dict, judged_from: int) -> dict:
+def check(packets, sources: dict, judged_from: int,
+          bit_depth: int = 8) -> dict:
     """Decode ``packets`` [(tu bytes, encoder's display recon or None)] in
     order. Returns the per-frame judgement: ``mismatch`` (samples where
     the decode differs from the encoder's recon, a frame one side shows
     and the other does not counting whole), ``frames`` [(display index,
-    samples differing, luma PSNR against ``sources[index]`` or None)] for
-    the shown frames from display index ``judged_from`` on, and ``error``
-    (the decoder's exception, after which every shown frame counts as
-    differing whole)."""
+    samples differing, luma PSNR against ``sources[index]`` at the peak
+    of ``bit_depth``, or None)] for the shown frames from display index
+    ``judged_from`` on, and ``error`` (the decoder's exception, or a
+    sequence header that states another bit depth than ``bit_depth``:
+    from that packet on every shown frame counts as differing whole)."""
+    peak = (1 << bit_depth) - 1
     dec = StreamDecoder()
     mismatch, shown, frames, error = 0, 0, [], None
     for tu, recon in packets:
@@ -64,6 +69,11 @@ def check(packets, sources: dict, judged_from: int) -> dict:
                 out = dec.decode_tu(tu)
             except Exception as e:   # a stream the decoder cannot read
                 error = f"{type(e).__name__}: {e}"
+            else:
+                if dec.seq is not None and dec.seq.bit_depth != bit_depth:
+                    error = (f"the sequence header states "
+                             f"{dec.seq.bit_depth} bits, the configuration "
+                             f"{bit_depth}")
         if out is None and recon is None:
             continue
         if error is not None:
@@ -75,9 +85,9 @@ def check(packets, sources: dict, judged_from: int) -> dict:
         mismatch += bad
         if shown >= judged_from:
             src = sources.get(shown)
-            psnr = psnr_db(out[0], src) if (out is not None and src is not None
-                                            and out[0].shape == src.shape) \
-                else None
+            psnr = psnr_db(out[0], src, peak) \
+                if (out is not None and src is not None
+                    and out[0].shape == src.shape) else None
             frames.append((shown, bad, psnr))
         shown += 1
     return {"mismatch": mismatch, "frames": frames, "error": error}

@@ -28,3 +28,19 @@ def tiny_cell(config: str, traffic: str, width: int, height: int):
     conf, traf = load(config, traffic)
     conf["encoder"].update(width=width, height=height, tile_columns=0)
     return conf, traf
+
+
+def encode(cfg, stream, frames: int):
+    """[(tu, recon)] of ``frames`` frames of ``stream`` through the
+    port's ``Encoder``, sent and drained as a run does, then flushed."""
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    enc = Encoder(cfg)
+    out = []
+    for t in range(frames):
+        enc.send_picture(*stream.frame(t))
+        while (p := enc.get_packet()) is not None:
+            out.append(p)
+    enc.flush()
+    while (p := enc.get_packet()) is not None:
+        out.append(p)
+    return out
